@@ -1,0 +1,38 @@
+// Modular word arithmetic shared by the port's CUDA kernels.
+//
+// A residue is one 64-bit word (the port's int64 tensors hold the same
+// bits). q < 2^61 for every prime of the presets, so 4q < R = 2^62 and the
+// lazy [0, 2q) sums below never reach bit 63.
+#pragma once
+
+#include <cstdint>
+
+typedef unsigned long long u64;
+
+// w*x mod q in [0, 2q) for any 64-bit x, with wp = floor(w * 2^64 / q).
+__device__ __forceinline__ u64 shoup_mul(u64 x, u64 w, u64 wp, u64 q) {
+  const u64 hi = __umul64hi(x, wp);
+  return x * w - hi * q;
+}
+
+// v - m when v >= m. The compare is SIGNED, as in the reference's
+// conditional subtract and final reduce; all operands here are < 2^63, so
+// it agrees with the unsigned compare.
+__device__ __forceinline__ u64 csub(u64 v, u64 m) {
+  return ((long long)v < (long long)m) ? v : v - m;
+}
+
+// Montgomery product a*b*2^-62 mod q for a, b < 2^62, lazy in [0, 2q).
+// k = -q^-1 mod 2^62. This is the exact REDC (a*b + m*q) / 2^62 with
+// m = a*b*k mod 2^62, which is the value the reference's 31-bit half-limb
+// chain computes, bit for bit.
+__device__ __forceinline__ u64 montmul(u64 a, u64 b, u64 q, u64 k) {
+  const u64 lo = a * b;
+  const u64 hi = __umul64hi(a, b);
+  const u64 m = (lo * k) & ((1ULL << 62) - 1);
+  const u64 mlo = m * q;
+  const u64 mhi = __umul64hi(m, q);
+  const u64 slo = lo + mlo;
+  const u64 shi = hi + mhi + (slo < lo ? 1ULL : 0ULL);
+  return (shi << 2) | (slo >> 62);
+}

@@ -1,0 +1,685 @@
+"""The CKKS engine on PyTorch: keys, encryption, and the ct x ct multiply.
+
+A polynomial is one int64 tensor [C, N] of 62-bit words on the engine's
+device. Level/layout convention: the global prime order is
+q = [scale_0..scale_{L-1}, base, special_0..special_{k-1}]; a ciphertext at
+level ``l`` holds the channel suffix q[l:] minus the special primes; keys
+hold the full level-0 with-special layout and are sliced by ``l``.
+
+The multiply follows the reference's fused path with the butterfly kernels
+and Shoup-form chains: four rescales, the products in the NTT domain
+(one B=4 forward transform), the B=3 inverse transform, and the hybrid key
+switch (basis extension, forward transform, key multiply-accumulate over
+gadget parts, inverse transform, special-prime mod-down). Rescale,
+extension and mod-down are plain torch ops; the transforms and the key
+multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``.
+"""
+
+import math
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..csprng import Csprng
+from ..device import resolve_device
+from ..ntt import cuda_ntt, ops, u64
+from ..ntt.ntt_context import NttContext
+from ..version import VERSION
+from .context.ckks_context import CkksContext
+from .data_struct import DataStruct
+from .encdec import encdec
+from .presets import errors, types
+
+
+def _col(t):
+    return t[:, None]
+
+
+# -- pointwise cores ---------------------------------------------------------------
+
+
+def _sk_core(ternary, pack):
+    return ops.enter_ntt(ops.tile_unsigned(ternary, pack), pack)
+
+
+def _pk_core(e, a, sk, pack):
+    """pk0 = e - a*sk (NTT + Montgomery domain)."""
+    W = pack.q.shape[0]
+    sk = ops.fit_channels(sk, W)
+    a = ops.fit_channels(a, W)
+    e_t = ops.enter_ntt(ops.tile_unsigned(e, pack), pack)
+    return ops.mont_sub(e_t, ops.mont_mult(a, sk, pack), pack), a
+
+
+def _encrypt_core(pt, dc, e0, e1, v, pk0, pk1, level, pack):
+    """ct = (v*pk0 + pt + e0, v*pk1 + e1). ``dc`` is the bias-guard DC
+    coefficient's RNS remainder [C] (zeros when the guard is off)."""
+    W = pack.q.shape[0]
+    pk = torch.stack([ops.fit_channels(pk0[level:], W),
+                      ops.fit_channels(pk1[level:], W)])
+    e0_t = ops.tile_unsigned(e0, pack)
+    e1_t = ops.tile_unsigned(e1, pack)
+    pt_t = ops.tile_unsigned(pt, pack)
+    pt_t[:, 0] += dc
+    # Signed multiply + canon: plaintext coefficients may exceed +-q; the
+    # signed semantics reduce any int64 correctly mod each channel prime.
+    pt_t = ops.mont_enter_scalar(pt_t, pack.Rs_scale, pack)
+    pt_t = ops.canon_2q(ops.mont_redc(pt_t, pack), pack)
+    pte0 = ops.mont_add(pt_t, e0_t, pack)
+
+    v_n = ops.enter_ntt(ops.tile_unsigned(v, pack), pack)
+    vpk = ops.intt_exit(ops.mont_mult(v_n, pk, pack), pack)
+    ct0 = ops.reduce_2q(ops.mont_add(vpk[0], pte0, pack), pack)
+    ct1 = ops.reduce_2q(ops.mont_add(vpk[1], e1_t, pack), pack)
+    return ct0, ct1
+
+
+def _decrypt_double_pt(ct0, ct1, sk, level, pack):
+    """pt = ct0 + ct1*sk."""
+    sk = ops.fit_channels(sk[level:], pack.q.shape[0])
+    a_n = ops.enter_ntt(ct1, pack)
+    sa = ops.intt_exit(ops.mont_mult(a_n, sk, pack), pack)
+    return ops.reduce_2q(ops.mont_add(ct0, sa, pack), pack)
+
+
+def _gt_unsigned(a, b):
+    return ~u64.lt_unsigned(a, b) & (a != b)
+
+
+def _final_rescale(pt, base_pack, final_scalar, round_half, base_at):
+    """round((base - scaler) / q_l) as a signed base-prime representative
+    [1, N], from the base-prime channel and the rescale channel."""
+    base = pt[base_at:base_at + 1]
+    scaler = pt[0:1]
+    scaled = ops.mont_sub(base, scaler, base_pack)
+    scaled = ops.mont_enter_scalar(scaled, final_scalar, base_pack)
+    scaled = ops.make_signed(ops.reduce_2q(scaled, base_pack), base_pack)
+    return scaled + _gt_unsigned(scaler, round_half).to(torch.int64)
+
+
+def _rescale_core_shoup(d, rs_sh, bp, round_half, pack_next):
+    """Drop the rescale channel: (d - s) * q_l^-1 with exact rounding, in
+    the plain domain. d: [..., C_in, N]; the dropped channel is
+    Barrett-reduced per surviving channel and the q_l^-1 multiply is a
+    Shoup constant multiply. Output canonical [0, q)."""
+    w, wp = rs_sh
+    s = d[..., 0:1, :]
+    body = d[..., 1:, :]
+    q2 = _col(pack_next.q2)
+    q = _col(pack_next.q)
+    s_red = u64.barrett_2q(s.expand_as(body), _col(bp), q)
+    diff = body + q2 - s_red                     # [0, 4q)
+    out = u64.shoup_mul(diff, _col(w), _col(wp), q)
+    if round_half is not None:
+        out = out + _gt_unsigned(s, round_half).to(torch.int64)
+    return torch.where(out < q, out, out - q)
+
+
+def _mod_down_shoup(d, pack_sp, pack_ord, PiWs, bp, n_sp):
+    """Special-prime removal in the plain domain. d: [..., C_sp, N] plain
+    [0, q); returns [..., C_ord, N] in [0, q). Each special prime in turn:
+    subtract its (Barrett-reduced) row from every channel, multiply by
+    P_j^-1 (Shoup)."""
+    C_sp = d.shape[-2]
+    q2 = _col(pack_sp.q2)
+    q = _col(pack_sp.q)
+    v = d
+    for P_ind in range(n_sp):
+        cur = C_sp - P_ind
+        src = v[..., cur - 1:cur, :]
+        if P_ind:
+            # The dropped row is subtracted as an INTEGER: make it the
+            # canonical [0, q) representative of its own modulus.
+            qr = pack_sp.q[cur - 1]
+            src = torch.where(u64.lt_unsigned(src, qr), src, src - qr)
+        tile = u64.barrett_2q(src.expand_as(v), _col(bp), q)
+        w, wp = PiWs[P_ind]
+        v = u64.shoup_mul(v + q2 - tile, _col(w), _col(wp), q)
+    vo = v[..., :pack_ord.q.shape[0], :]
+    qo = _col(pack_ord.q)
+    return torch.where(vo < qo, vo, vo - qo)
+
+
+def _cc_mult_core(x0, x1, y0, y1, pack):
+    """(d0, d1, d2) = (x0y0, x0y1+x1y0, x1y1) in the NTT domain, with one
+    B=4 enter+transform."""
+    x0, x1, y0, y1 = ops.enter_ntt(torch.stack([x0, x1, y0, y1]), pack)
+    d0 = ops.mont_mult(x0, y0, pack)
+    d1 = ops.mont_add(ops.mont_mult(x0, y1, pack),
+                      ops.mont_mult(x1, y0, pack), pack)
+    d2 = ops.mont_mult(x1, y1, pack)
+    return d0, d1, d2
+
+
+def _relin_pre(d0, d1, d2, pack):
+    """The B=3 inverse transform with Montgomery exit and reduce."""
+    return ops.intt_exit_reduce(torch.stack([d0, d1, d2]), pack)
+
+
+def _relin_post(d0, d1, s0, s1, pack):
+    return ops.reduce_2q(d0 + s0, pack), ops.reduce_2q(d1 + s1, pack)
+
+
+def _pre_extend(a, start, alpha, part):
+    """Divided-difference state of one gadget part: a list of alpha
+    [1, N] rows (signed int64; Montgomery multiplies mirror the CUDA int64
+    semantics)."""
+    a_part = a[start:start + alpha]
+    pk = part.pack
+    state = [a_part[0:1]] * alpha
+    for i in range(alpha - 1):
+        diff = a_part[i + 1:i + 2] - state[i + 1]
+        Y = u64.montmul(diff, part.Y_scalar[i],
+                        pk.ql[i + 1], pk.qh[i + 1], pk.kl[i + 1],
+                        pk.kh[i + 1])
+        state[i + 1] = Y
+        if i + 2 < alpha:
+            new = u64.montmul(Y, _col(part.L_scalar[i]),
+                              *(_col(t[i + 2:alpha]) for t in
+                                (pk.ql, pk.qh, pk.kl, pk.kh)))
+            for j in range(i + 2, alpha):
+                state[j] = state[j] + new[j - i - 2:j - i - 1]
+    return state
+
+
+def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
+    """Basis extension onto the with-special layout in the plain domain:
+    unsigned [0, 2q) output [C_sp, N]. Every term may be wrapped-signed, so
+    it is offset by +2^63 before the Barrett/Shoup reduction and corrected
+    with a per-channel constant."""
+    bp, off0 = bp_off
+    C_sp = pack_sp.q.shape[0]
+    q2 = _col(pack_sp.q2)
+    q = _col(pack_sp.q)
+
+    def csub(x):                       # [0, 4q) -> [0, 2q)
+        return torch.where(u64.lt_unsigned(x, q2), x, x - q2)
+
+    t = (state[0] + u64.INT64_MIN).expand(C_sp, -1)
+    acc = csub(u64.barrett_2q(t, _col(bp), q) + _col(off0))
+    for i in range(len(state) - 1):
+        w, wp, cadj = (x[level:level + C_sp] for x in le_sh[i])
+        u = (state[i + 1] + u64.INT64_MIN).expand(C_sp, -1)
+        e = csub(u64.shoup_mul(u, _col(w), _col(wp), q) + _col(cadj))
+        acc = csub(acc + e)
+    return acc
+
+
+@errors.log_error
+class CkksEngine:
+    """The user-facing CKKS engine (this slice: keys, encode/encrypt,
+    ct x ct multiply with relinearisation and rescale, decrypt/decode).
+
+    ``device``: where every tensor lives; ``None`` means ``cuda:0`` and
+    raises when no CUDA device is present. ``device="cpu"`` runs the
+    kernels' plain twins.
+    """
+
+    def __init__(self, device=None, verbose: bool = False,
+                 bias_guard: bool = True, norm: str = "forward",
+                 seed=None, mesh_shape=None, **ctx_params):
+        if mesh_shape not in (None, 1):
+            raise ValueError("the port runs on one device (mesh_shape=None)")
+        self.device = resolve_device(device)
+        self.bias_guard = bias_guard
+        self.norm = norm
+        self.version = VERSION
+
+        self.ctx = CkksContext(verbose=verbose, **ctx_params)
+        self.ntt = NttContext(self.ctx, self.device)
+
+        # The deepest usable level.
+        self.num_levels = self.ntt.num_levels - 1
+        self.num_slots = self.ctx.N // 2
+        self.num_ordinary = self.ntt.num_ordinary_primes
+        self.num_special = self.ntt.num_special_primes
+
+        self.rng = Csprng(self.ctx.N, self.num_ordinary,
+                          max(self.num_special, 2), sigma=self.ctx.sigma,
+                          seed=seed, device=self.device)
+
+        self.int_scale = 2 ** self.ctx.scale_bits
+        self.scale = np.float64(self.int_scale)
+        self.hash = self.ctx.engine_hash()
+
+        self._make_adjustments_and_corrections()
+        self._make_mont_PR()
+        self._create_ksk_rescales()
+        self._create_rescale_scales()
+        self._ksk_stacked_cache = OrderedDict()
+
+        self.mult_dispatch = {(DataStruct, DataStruct): self.auto_cc_mult}
+
+    def _tensor(self, vals):
+        return u64.tensor(vals, self.device)
+
+    # -- precomputation -------------------------------------------------------
+
+    def _make_adjustments_and_corrections(self):
+        """Per-level deviation/correction factors and the final decryption
+        scalar q_l^-1 * R mod base_prime."""
+        ctx = self.ctx
+        self.alpha = [(self.scale / np.float64(q)) ** 2
+                      for q in ctx.q[:ctx.num_scales]]
+        self.deviations = [1.0]
+        for al in self.alpha:
+            self.deviations.append(self.deviations[-1] ** 2 * al)
+
+        # At level l the rescale channel is q[l].
+        self.final_q = [ctx.q[l] for l in range(self.num_levels)]
+        self.final_alpha = [(self.scale / np.float64(q))
+                            for q in self.final_q]
+        self.corrections = [1 / (d * fa) for d, fa
+                            in zip(self.deviations, self.final_alpha)]
+
+        self.base_prime = ctx.q[self.num_ordinary - 1]
+        self.base_idx = self.num_ordinary - 1
+        self.final_scalar = [
+            self._tensor([(pow(q, -1, self.base_prime) * ctx.R)
+                          % self.base_prime])
+            for q in self.final_q]
+        self.round_halves = [self._tensor([q // 2]) for q in self.final_q]
+        self.base_pack = self.ntt.make_pack(self.base_idx, self.base_idx + 1,
+                                            with_plan=False)
+
+    def _make_mont_PR(self):
+        """P*R mod q_i over the ordinary primes, for ksk generation."""
+        P = math.prod(self.ctx.q[-self.num_special:])
+        self.mont_PR = self._tensor([(P * self.ctx.R) % q
+                                     for q in self.ctx.q[:self.num_ordinary]])
+
+    def _shoup_pair(self, ws, qs):
+        ws = [int(w) % int(q) for w, q in zip(ws, qs)]
+        return (self._tensor(ws),
+                self._tensor([(w << 64) // int(q) for w, q in zip(ws, qs)]))
+
+    def _create_ksk_rescales(self):
+        """Shoup-form mod-down tables per level: for each special prime
+        P_j (P_j^-1 mod q_i, quotient) over the with-special channels
+        (1 on the channels already dropped), the Barrett reciprocals
+        floor(2^64 / q_i), and the offset correction 2q - (2^63 mod q) of
+        the basis extension's first term."""
+        ctx = self.ctx
+        P = ctx.q[-self.num_special:][::-1]
+        self.PiWs = []
+        self.bp_sp = []
+        for level in range(self.num_levels):
+            q_lvl = ctx.q[level:]
+            C_sp = len(q_lvl)
+            per_level = []
+            for P_ind, Pj in enumerate(P):
+                live = C_sp - P_ind - 1
+                ws = ([pow(Pj, -1, mi) for mi in q_lvl[:live]]
+                      + [1] * (C_sp - live))
+                per_level.append(self._shoup_pair(ws, q_lvl))
+            self.PiWs.append(tuple(per_level))
+            self.bp_sp.append((
+                self._tensor([(1 << 64) // q for q in q_lvl]),
+                self._tensor([2 * q - ((1 << 63) % q) for q in q_lvl])))
+
+    def _create_rescale_scales(self):
+        """Shoup-form rescale tables: (q_l^-1 mod q_i, quotient) and the
+        Barrett reciprocals of the channels that survive level l."""
+        ctx = self.ctx
+        self.rescale_sh = []
+        self.bp_ord = []
+        for level in range(self.num_levels):
+            m0 = ctx.q[level]
+            m = ctx.q[level + 1:self.num_ordinary]
+            self.rescale_sh.append(
+                self._shoup_pair([pow(m0, -1, mi) for mi in m], m))
+            self.bp_ord.append(self._tensor([(1 << 64) // q for q in m]))
+
+    def pack(self, level: int, mult_type: int = -1):
+        return self.ntt.level_pack(level, mult_type)
+
+    # -- examples and errors -------------------------------------------------------
+
+    def absmax_error(self, x, y):
+        x = np.asarray(x)
+        y = np.asarray(y)
+        if np.iscomplexobj(x) and np.iscomplexobj(y):
+            return (np.abs(x.real - y.real).max()
+                    + np.abs(x.imag - y.imag).max() * 1j)
+        return np.abs(x - y).max()
+
+    def integral_bits_available(self):
+        return math.floor(math.log2(self.base_prime)) - self.ctx.scale_bits
+
+    def example(self, amin=None, amax=None, decimal_places: int = 10):
+        if amin is None:
+            amin = -(2 ** self.integral_bits_available())
+        if amax is None:
+            amax = 2 ** self.integral_bits_available()
+        base = 10 ** decimal_places
+        a = np.random.randint(amin * base, amax * base, self.num_slots) / base
+        b = np.random.randint(amin * base, amax * base, self.num_slots) / base
+        return a + b * 1j
+
+    # -- encode / decode ------------------------------------------------------------
+
+    def padding(self, m):
+        m = np.atleast_1d(np.asarray(m))
+        return np.pad(m, (0, self.num_slots - len(m)))
+
+    def encode(self, m, level: int = 0, padding=True) -> torch.Tensor:
+        """Complex message -> signed plaintext polynomial [1, N]."""
+        if padding:
+            m = self.padding(m)
+        encoded = encdec.encode(m, rng=self.rng, scale=self.scale,
+                                deviation=self.deviations[level],
+                                norm=self.norm)
+        return torch.from_numpy(encoded[None, :]).to(self.device)
+
+    def decode(self, m, level=0, is_real: bool = False):
+        """Signed plaintext [1, N] -> complex message (N/2 slots)."""
+        poly = m.to("cpu").numpy()[0]
+        decoded = encdec.decode(poly, scale=self.scale,
+                                correction=self.corrections[level],
+                                norm=self.norm)[:self.num_slots]
+        return decoded.real if is_real else decoded
+
+    # -- key generation ----------------------------------------------------------
+
+    def create_secret_key(self, include_special: bool = True) -> DataStruct:
+        """Uniform ternary secret in the NTT+Montgomery domain."""
+        ternary = self.rng.randint(amax=3, shift=-1, repeats=1)
+        mult_type = -2 if include_special else -1
+        sk = _sk_core(ternary, self.pack(0, mult_type))
+        return DataStruct(sk, include_special, True, True,
+                          types.origins["sk"], 0, self.hash)
+
+    def create_public_key(self, sk: DataStruct, include_special: bool = False,
+                          a=None, crs=None) -> DataStruct:
+        """pk = (e - a*s, a)."""
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        if include_special and not sk.include_special:
+            raise errors.SecretKeyNotIncludeSpecialPrime()
+        mult_type = -2 if include_special else -1
+        pack = self.pack(0, mult_type)
+
+        e = self.rng.discrete_gaussian(repeats=1)
+        if a is None:
+            a = crs
+        if a is None:
+            repeats = self.num_special if include_special else 0
+            a = self.rng.randint(amax=self.ntt.q_ints(0, mult_type),
+                                 repeats=repeats)
+        pk0, a_fit = _pk_core(e, a, sk.data, pack)
+        return DataStruct((pk0, a_fit), include_special, True, True,
+                          types.origins["pk"], 0, self.hash)
+
+    def create_key_switching_key(self, sk_from: DataStruct, sk_to: DataStruct,
+                                 a=None) -> DataStruct:
+        """Hybrid gadget-decomposed ksk: one public-key pair per partition,
+        with P*sk_from added on that partition's channel block."""
+        if (sk_from.origin != types.origins["sk"]
+                or sk_to.origin != types.origins["sk"]):
+            raise errors.NotMatchType(origin="not a secret key",
+                                      to=types.origins["sk"])
+        if not sk_from.ntt_state or not sk_from.montgomery_state:
+            raise errors.NotMatchDataStructState(origin=sk_from.origin)
+
+        pack_ord = self.pack(0, -1)
+        Psk = ops.mont_enter_scalar(
+            ops.fit_channels(sk_from.data, pack_ord.q.shape[0]),
+            self.mont_PR, pack_ord)
+        ksk = []
+        for part in self.ntt.parts(0):
+            crs = a[part.part_id] if a is not None else None
+            pk = self.create_public_key(sk_to, include_special=True, a=crs)
+            lo, hi = part.prime_idx[0], part.prime_idx[-1] + 1
+            pk0 = pk.data[0].clone()
+            pk0[lo:hi] = ops.mont_add(pk0[lo:hi], Psk[lo:hi], part.pack)
+            ksk.append(pk._replace(
+                data=(pk0, pk.data[1]),
+                origin=f"key switch key part index {part.part_id}"))
+        return DataStruct(ksk, True, True, True, types.origins["ksk"], 0,
+                          self.hash)
+
+    def create_evk(self, sk: DataStruct) -> DataStruct:
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        sk2 = sk._replace(data=ops.mont_mult(sk.data, sk.data,
+                                             self.pack(0, -2)))
+        return self.create_key_switching_key(sk2, sk)
+
+    def _ksk_stacked(self, ksk: DataStruct):
+        """Key halves stacked once per key: [P_full, C0_sp, N] x 2. The
+        switch reads the level's channels and the active parts through
+        strides, without slicing copies. Small LRU keyed by identity."""
+        if ksk in self._ksk_stacked_cache:
+            self._ksk_stacked_cache.move_to_end(ksk)
+            return self._ksk_stacked_cache[ksk]
+        k0 = torch.stack([part.data[0] for part in ksk.data])
+        k1 = torch.stack([part.data[1] for part in ksk.data])
+        self._ksk_stacked_cache[ksk] = (k0, k1)
+        if len(self._ksk_stacked_cache) > 16:
+            self._ksk_stacked_cache.popitem(last=False)
+        return k0, k1
+
+    # -- encrypt / decrypt --------------------------------------------------------
+
+    def encrypt(self, pt, pk: DataStruct, level: int = 0) -> DataStruct:
+        if pk.origin != types.origins["pk"]:
+            raise errors.NotMatchType(origin=pk.origin, to=types.origins["pk"])
+        mult_type = -2 if pk.include_special else -1
+        pack = self.pack(level, mult_type)
+        e0e1 = self.rng.discrete_gaussian(repeats=2)
+        v = self.rng.randint(amax=2, shift=0, repeats=1)
+        dc = torch.zeros_like(pack.q)
+        ct0, ct1 = _encrypt_core(pt, dc, e0e1[0:1], e0e1[1:2], v,
+                                 pk.data[0], pk.data[1], level, pack)
+        return DataStruct((ct0, ct1), mult_type == -2, False, False,
+                          types.origins["ct"], level, self.hash)
+
+    def _decrypt_pt(self, ct: DataStruct, sk: DataStruct):
+        """Raw decryption to the plaintext RNS poly (no final rescale)."""
+        if ct.origin != types.origins["ct"]:
+            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
+        if ct.ntt_state or ct.montgomery_state:
+            raise errors.NotMatchDataStructState(origin=ct.origin)
+        return _decrypt_double_pt(ct.data[0], ct.data[1], sk.data, ct.level,
+                                  self.pack(ct.level, -1))
+
+    def _final_rescale_signed(self, pt, level, final_round=True):
+        rh = (self.round_halves[level] if final_round
+              else self._tensor([(1 << 63) - 1]))
+        return _final_rescale(pt, self.base_pack, self.final_scalar[level],
+                              rh, self.num_ordinary - 1 - level)
+
+    def decrypt(self, ct: DataStruct, sk: DataStruct, final_round=True):
+        """Decrypt to the signed base-prime plaintext poly [1, N]."""
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        if not sk.ntt_state or not sk.montgomery_state:
+            raise errors.NotMatchDataStructState(origin=sk.origin)
+        pt = self._decrypt_pt(ct, sk)
+        return self._final_rescale_signed(pt, ct.level, final_round)
+
+    def encodecrypt(self, m, pk: DataStruct, level: int = 0,
+                    padding=True) -> DataStruct:
+        if pk.origin != types.origins["pk"]:
+            raise errors.NotMatchType(origin=pk.origin, to=types.origins["pk"])
+        if padding:
+            m = self.padding(m)
+        mult_type = -2 if pk.include_special else -1
+        pack = self.pack(level, mult_type)
+        q_lvl = self.ntt.q_ints(level, mult_type)
+
+        pt = encdec.encode(m, rng=self.rng, scale=self.scale,
+                           deviation=self.deviations[level], norm=self.norm,
+                           return_without_scaling=self.bias_guard)
+        dc = torch.zeros_like(pack.q)
+        if self.bias_guard:
+            # Split the integral DC part into RNS to dodge single-channel
+            # overflow.
+            dc_integral = float(np.floor(pt[0]))
+            pt = pt.copy()
+            pt[0] -= dc_integral
+            dc_scale = int(dc_integral) * self.int_scale
+            dc = self._tensor([dc_scale % qi for qi in q_lvl])
+            pt = self.rng.randround(pt * self.scale)
+        pt = torch.from_numpy(np.asarray(pt, dtype=np.int64)[None, :]).to(
+            self.device)
+
+        e0e1 = self.rng.discrete_gaussian(repeats=2)
+        v = self.rng.randint(amax=2, shift=0, repeats=1)
+        ct0, ct1 = _encrypt_core(pt, dc, e0e1[0:1], e0e1[1:2], v,
+                                 pk.data[0], pk.data[1], level, pack)
+        return DataStruct((ct0, ct1), mult_type == -2, False, False,
+                          types.origins["ct"], level, self.hash)
+
+    def decryptcode(self, ct: DataStruct, sk: DataStruct, is_real=False,
+                    final_round=True):
+        if not sk.ntt_state or not sk.montgomery_state:
+            raise errors.NotMatchDataStructState(origin=sk.origin)
+        level = ct.level
+        pt = self._decrypt_pt(ct, sk)
+        C = self.ntt.num_channels(level, -1)
+        base_at = self.num_ordinary - 1 - level
+
+        dc = 0
+        if C >= 3 and self.bias_guard:
+            # 3-prime CRT reconstruction of the DC coefficient.
+            dc0, dc1, dc2 = (int(v) for v in
+                             pt[[base_at, 0, 1], 0].to("cpu").tolist())
+            pt = pt.clone()
+            pt[base_at, 0] = 0
+            pt[0, 0] = 0
+            q_lvl = self.ntt.q_ints(level, -1)
+            q0, q1, q2 = q_lvl[base_at], q_lvl[0], q_lvl[1]
+            Q = q0 * q1 * q2
+            Q0, Q1, Q2 = q1 * q2, q0 * q2, q0 * q1
+            dc_crt = (dc0 * pow(Q0, -1, q0) * Q0
+                      + dc1 * pow(Q1, -1, q1) * Q1
+                      + dc2 * pow(Q2, -1, q2) * Q2) % Q
+            if dc_crt > Q // 2:
+                dc_crt -= Q
+            dc = (dc_crt + (q1 - 1)) // q1
+
+        scaled = self._final_rescale_signed(pt, level, final_round)
+        correction = self.corrections[level]
+        poly = scaled.to("cpu").numpy()[0]
+        decoded = encdec.decode(poly, scale=self.scale, correction=correction,
+                                norm=self.norm,
+                                return_without_scaling=self.bias_guard)
+        decoded = decoded[:self.num_slots]
+        if self.bias_guard:
+            decoded = decoded / self.scale * correction
+            decoded = decoded + dc / self.scale * correction
+        return decoded.real if is_real else decoded
+
+    def encorypt(self, m, pk, level: int = 0, padding=True):
+        return self.encodecrypt(m, pk, level=level, padding=padding)
+
+    def decrode(self, ct, sk, is_real=False, final_round=True):
+        return self.decryptcode(ct, sk, is_real=is_real,
+                                final_round=final_round)
+
+    # -- key switching -----------------------------------------------------------
+
+    def _switch(self, a, ksk: DataStruct, level: int):
+        """Key-switch a [C_ord, N] (plain [0, q), coefficient domain):
+        returns (d0, d1) over the ordinary channels in [0, q)."""
+        parts = self.ntt.parts(level)
+        pack_sp = self.pack(level, -2)
+        ext = torch.stack([
+            _extend_shoup(_pre_extend(a, p.local_start, p.alpha, p),
+                          p.L_enter_sh, pack_sp, self.bp_sp[level], level)
+            for p in parts])                              # [P, C_sp, N]
+        k0, k1 = self._ksk_stacked(ksk)
+        d0, d1 = cuda_ntt.ksk_mulacc(ops.ntt(ext, pack_sp), k0, k1,
+                                     pack_sp.plan, level, parts[0].part_id)
+        d = ops.intt_reduce(torch.stack([d0, d1]), pack_sp)
+        return _mod_down_shoup(d, pack_sp, self.pack(level, -1),
+                               self.PiWs[level], self.bp_sp[level][0],
+                               self.num_special)
+
+    # -- rescale / mult ----------------------------------------------------------
+
+    def rescale(self, ct: DataStruct, exact_rounding=True) -> DataStruct:
+        if ct.origin != types.origins["ct"]:
+            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
+        level = ct.level
+        if level + 1 >= self.num_levels:
+            raise errors.MaximumLevelError(level=level,
+                                           level_max=self.num_levels)
+        rh = self.round_halves[level] if exact_rounding else None
+        c = _rescale_core_shoup(torch.stack(ct.data), self.rescale_sh[level],
+                                self.bp_ord[level], rh,
+                                self.pack(level + 1, -1))
+        return DataStruct((c[0], c[1]), False, False, False,
+                          types.origins["ct"], level + 1, self.hash)
+
+    def cc_mult(self, a: DataStruct, b: DataStruct, evk: DataStruct,
+                relin=True) -> DataStruct:
+        """ct x ct multiply with relinearisation and the input rescales;
+        the result sits one level deeper."""
+        if not relin:
+            raise NotImplementedError("the port multiplies with relin only")
+        for ct in (a, b):
+            if ct.origin != types.origins["ct"]:
+                raise errors.NotMatchType(origin=ct.origin,
+                                          to=types.origins["ct"])
+        if a.level != b.level:
+            raise errors.NotSameLevelError(a=a.level, b=b.level)
+        level = a.level
+        nxt = level + 1
+        if nxt >= self.num_levels:
+            raise errors.MaximumLevelError(level=level,
+                                           level_max=self.num_levels)
+        pack = self.pack(nxt, -1)
+        x0, x1, y0, y1 = _rescale_core_shoup(
+            torch.stack([*a.data, *b.data]), self.rescale_sh[level],
+            self.bp_ord[level], self.round_halves[level], pack)
+        d0, d1, d2 = _cc_mult_core(x0, x1, y0, y1, pack)
+        d0, d1, d2 = _relin_pre(d0, d1, d2, pack)
+        s0, s1 = self._switch(d2, evk, nxt)
+        c0, c1 = _relin_post(d0, d1, s0, s1, pack)
+        return DataStruct((c0, c1), False, False, False,
+                          types.origins["ct"], nxt, self.hash)
+
+    def level_up(self, ct: DataStruct, dst_level: int) -> DataStruct:
+        if ct.origin != types.origins["ct"]:
+            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
+        new_ct = self.rescale(ct)
+        src_level = ct.level + 1
+        if dst_level < src_level:
+            raise errors.MaximumLevelError(level=dst_level,
+                                           level_max=src_level)
+        diff_deviation = (self.deviations[dst_level]
+                          / np.sqrt(self.deviations[src_level]))
+        deviated_delta = round(self.scale * diff_deviation)
+        drop = dst_level - src_level
+        pack_dst = self.pack(dst_level, -1)
+        mult = self._tensor([(deviated_delta * self.ctx.R) % qi
+                             for qi in self.ntt.q_ints(dst_level, -1)])
+        d = torch.stack(new_ct.data)[:, drop:]
+        d = ops.reduce_2q(ops.mont_enter_scalar(d, mult, pack_dst), pack_dst)
+        return DataStruct((d[0], d[1]), False, False, False,
+                          types.origins["ct"], dst_level, self.hash)
+
+    def auto_level(self, ct0: DataStruct, ct1: DataStruct):
+        if ct0.level < ct1.level:
+            return self.level_up(ct0, ct1.level), ct1
+        if ct0.level > ct1.level:
+            return ct0, self.level_up(ct1, ct0.level)
+        return ct0, ct1
+
+    def auto_cc_mult(self, ct0, ct1, evk, relin=True):
+        a, b = self.auto_level(ct0, ct1)
+        return self.cc_mult(a, b, evk, relin=relin)
+
+    def mult(self, a, b, evk=None, relin=True):
+        func = self.mult_dispatch.get((type(a), type(b)))
+        if func is None:
+            raise errors.DifferentTypeError(a=type(a).__name__,
+                                            b=type(b).__name__)
+        return func(a, b, evk, relin)
+
+
+# Reference-compatible alias.
+ckks_engine = CkksEngine

@@ -1,0 +1,290 @@
+"""The butterfly kernels: CUDA wrappers, their plain PyTorch twins and
+their launch counters.
+
+Three kernels (sources in ``liberate_tpu_torch/csrc``):
+
+- ``ntt_fwd``: forward negacyclic NTT over [..., C, N], optionally entering
+  Montgomery form first (a Shoup multiply by R mod q) and reducing to
+  [0, q) last (replaces ``pallas_ntt._ntt_kernel``);
+- ``ntt_inv``: the inverse NTT with the N^-1 (or N^-1 R^-1, the fused
+  Montgomery exit) Shoup multiply and the optional reduce folded in
+  (replaces ``pallas_ntt._intt_kernel``);
+- ``ksk_mulacc``: the key-switch products with both key halves, summed
+  over the gadget parts (replaces ``pallas_ntt._ksk_mulacc_kernel``).
+
+A wrapper launches its kernel for a CUDA tensor and runs its plain twin
+only for a CPU tensor; it raises for anything else. Each twin repeats the
+kernel's arithmetic step for step, so both give the same words. Every
+launch adds one to ``launches[name]``.
+"""
+
+import ctypes
+
+import torch
+
+from .. import _build
+from . import u64
+
+launches = {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+class NttPlan:
+    """Per-channel tables of the kernels for one channel layout.
+
+    w/wp, iw/iwp: forward and inverse PLAIN twiddle banks [C, N]
+    (bit-reversed: stage s, block b uses entry 2^s + b) and their Shoup
+    quotients floor(w * 2^64 / q). q, k: [C] modulus and k = -q^-1 mod
+    2^62. enter: (R mod q, quotient); ninv: (N^-1, quotient); ninv_exit:
+    (N^-1 R^-1, quotient), each a pair of [C] tensors.
+    """
+
+    __slots__ = ("logN", "q", "k", "w", "wp", "iw", "iwp", "enter", "ninv",
+                 "ninv_exit")
+
+    def __init__(self, logN, q, k, w, wp, iw, iwp, enter, ninv, ninv_exit):
+        self.logN = logN
+        self.q, self.k = q, k
+        self.w, self.wp, self.iw, self.iwp = w, wp, iw, iwp
+        self.enter, self.ninv, self.ninv_exit = enter, ninv, ninv_exit
+
+    def slice(self, start, stop):
+        """The plan of the channel range [start, stop) (views, no copies)."""
+        def cut(t):
+            return t[start:stop]
+        return NttPlan(self.logN, cut(self.q), cut(self.k), cut(self.w),
+                       cut(self.wp), cut(self.iw), cut(self.iwp),
+                       tuple(map(cut, self.enter)), tuple(map(cut, self.ninv)),
+                       tuple(map(cut, self.ninv_exit)))
+
+
+def make_plan(logN, q_list, k_list, psi_plain, ipsi_plain, device):
+    """Build an NttPlan. psi_plain/ipsi_plain: int64 [C, N] plain banks.
+    The quotient banks are computed by long division on ``device``."""
+    R = 1 << 62
+    N = 1 << logN
+    qt = u64.tensor(q_list, device)
+    w = torch.as_tensor(psi_plain, dtype=torch.int64).to(device)
+    iw = torch.as_tensor(ipsi_plain, dtype=torch.int64).to(device)
+
+    def quot(bank):
+        return u64.shoup_quotient(bank, qt[:, None]).contiguous()
+
+    def scalar(ws):
+        return (u64.tensor(ws, device),
+                u64.tensor([(w_ << 64) // q for w_, q in zip(ws, q_list)],
+                           device))
+
+    ninv = [pow(N, -1, q) for q in q_list]
+    rinv = [pow(R, -1, q) for q in q_list]
+    return NttPlan(
+        logN, qt, u64.tensor(k_list, device), w, quot(w), iw, quot(iw),
+        enter=scalar([R % q for q in q_list]),
+        ninv=scalar(ninv),
+        ninv_exit=scalar([(n * r) % q for n, r, q in zip(ninv, rinv,
+                                                          q_list)]))
+
+
+# -- plain twins ------------------------------------------------------------------
+
+
+def _cond_sub(v, m):
+    # Signed compare, as the reference's conditional subtract.
+    return torch.where(v < m, v, v - m)
+
+
+def ntt_fwd_plain(x, plan, pre_enter=False, post_reduce=False):
+    """Forward NTT of x [B, C, N] (CT butterflies, bit-reversed output)."""
+    B, C, N = x.shape
+    q = plan.q[:, None, None]
+    q2 = 2 * q
+    a = x
+    if pre_enter:
+        a = u64.shoup_mul(a, plan.enter[0][:, None], plan.enter[1][:, None],
+                          plan.q[:, None])
+    for s in range(plan.logN):
+        m = 1 << s
+        v = a.reshape(B, C, m, 2, N >> (s + 1))
+        U, O = v[:, :, :, 0], v[:, :, :, 1]
+        V = u64.shoup_mul(O, plan.w[:, m:2 * m, None],
+                          plan.wp[:, m:2 * m, None], q)
+        a = torch.stack([_cond_sub(U + V, q2), _cond_sub(U + q2 - V, q2)],
+                        dim=3).reshape(B, C, N)
+    if post_reduce:
+        a = _cond_sub(a, plan.q[:, None])
+    return a
+
+
+def ntt_inv_plain(x, plan, post_exit=False, post_reduce=False):
+    """Inverse NTT of x [B, C, N] (GS butterflies), then the Shoup multiply
+    by N^-1 (N^-1 R^-1 with post_exit), then optionally [0, 2q) -> [0, q)."""
+    B, C, N = x.shape
+    q = plan.q[:, None, None]
+    q2 = 2 * q
+    a = x
+    for s in reversed(range(plan.logN)):
+        m = 1 << s
+        v = a.reshape(B, C, m, 2, N >> (s + 1))
+        U, V = v[:, :, :, 0], v[:, :, :, 1]
+        O = _cond_sub(U + q2 - V, q2)
+        W = u64.shoup_mul(O, plan.iw[:, m:2 * m, None],
+                          plan.iwp[:, m:2 * m, None], q)
+        a = torch.stack([_cond_sub(U + V, q2), W], dim=3).reshape(B, C, N)
+    w, wp = plan.ninv_exit if post_exit else plan.ninv
+    a = u64.shoup_mul(a, w[:, None], wp[:, None], plan.q[:, None])
+    if post_reduce:
+        a = _cond_sub(a, plan.q[:, None])
+    return a
+
+
+def _montmul_consts(plan):
+    k = plan.k
+    q = plan.q
+    return (q & u64.LB_MASK, q >> u64.HALF_NBITS,
+            k & u64.LB_MASK, k >> u64.HALF_NBITS)
+
+
+def ksk_mulacc_plain(x, k0, k1, plan, level, part_off):
+    """x [P, C, N]; k0/k1 full key stacks [P_full, C0, N]. Returns
+    (d0, d1) [C, N]: montmul products with the key at
+    [part_off + p, level + c], summed over p with a 2q conditional
+    subtract after each add."""
+    P, C, _ = x.shape
+    cons = [t[:, None] for t in _montmul_consts(plan)]
+    q2 = 2 * plan.q[:, None]
+    p0 = u64.montmul(x, k0[part_off:part_off + P, level:level + C], *cons)
+    p1 = u64.montmul(x, k1[part_off:part_off + P, level:level + C], *cons)
+    d0, d1 = p0[0], p1[0]
+    for p in range(1, P):
+        d0 = _cond_sub(d0 + p0[p], q2)
+        d1 = _cond_sub(d1 + p1[p], q2)
+    return d0, d1
+
+
+# -- CUDA launches -----------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_L = ctypes.c_longlong
+_I = ctypes.c_int
+_ARGTYPES = {
+    "ltt_ntt_fwd": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "ltt_ntt_inv": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "ltt_ksk_mulacc": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
+                       _P],
+}
+
+
+def _fn(lib_name, fn_name):
+    fn = getattr(_build.load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[fn_name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(x, *tables):
+    if x.dtype != torch.int64:
+        raise TypeError(f"expected int64 words, got {x.dtype}")
+    for t in tables:
+        if t.device != x.device or t.dtype != torch.int64 \
+                or not t.is_contiguous():
+            raise ValueError("kernel tables must be contiguous int64 on "
+                             "the data's device")
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _batched(x, plan):
+    """View x [..., C, N] as [B, C, N] (no copy); checks the shape."""
+    C, N = plan.q.shape[0], 1 << plan.logN
+    if x.shape[-2:] != (C, N):
+        raise ValueError(f"expected [..., {C}, {N}] words, got "
+                         f"{tuple(x.shape)}")
+    return x.reshape(-1, C, N)
+
+
+def _device_kind(x):
+    if x.is_cuda:
+        return "cuda"
+    if x.device.type == "cpu":
+        return "cpu"
+    raise RuntimeError(f"no kernel for device {x.device}")
+
+
+def _transform(name, x, plan, w, wp, scal, post_reduce, twin):
+    xb = _batched(x, plan)
+    if _device_kind(x) == "cpu":
+        return twin(xb).reshape(x.shape)
+    _check_cuda(x, plan.q, w, wp, *(scal or ()))
+    if xb.stride(2) != 1:
+        raise ValueError(f"{name}: the coefficient axis must be contiguous")
+    B, C, N = xb.shape
+    out = torch.empty((B, C, N), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _fn("ntt", "ltt_" + name)(
+            xb.data_ptr(), xb.stride(0), xb.stride(1), out.data_ptr(), B, C,
+            plan.logN, w.data_ptr(), wp.data_ptr(), plan.q.data_ptr(),
+            scal[0].data_ptr() if scal else None,
+            scal[1].data_ptr() if scal else None, int(post_reduce), stream)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out.reshape(x.shape)
+
+
+def ntt_fwd(x, plan, pre_enter=False, post_reduce=False):
+    """Forward NTT of x [..., C, N] (CUDA kernel, or the twin on the CPU)."""
+    return _transform(
+        "ntt_fwd", x, plan, plan.w, plan.wp,
+        plan.enter if pre_enter else None, post_reduce,
+        lambda xb: ntt_fwd_plain(xb, plan, pre_enter, post_reduce))
+
+
+def ntt_inv(x, plan, post_exit=False, post_reduce=False):
+    """Inverse NTT of x [..., C, N] with the N^-1 (N^-1 R^-1 when
+    post_exit) multiply and optional reduce."""
+    return _transform(
+        "ntt_inv", x, plan, plan.iw, plan.iwp,
+        plan.ninv_exit if post_exit else plan.ninv, post_reduce,
+        lambda xb: ntt_inv_plain(xb, plan, post_exit, post_reduce))
+
+
+def ksk_mulacc(x, k0, k1, plan, level, part_off):
+    """Key-switch multiply-accumulate (see ksk_mulacc_plain). The key
+    stacks are read in place through their strides."""
+    P, C, N = x.shape
+    if plan.q.shape[0] != C or N != 1 << plan.logN:
+        raise ValueError("ksk_mulacc: x does not match the plan")
+    if k0.shape != k1.shape or k0.stride() != k1.stride() \
+            or k0.shape[0] < part_off + P or k0.shape[1] < level + C \
+            or k0.shape[2] != N:
+        raise ValueError("ksk_mulacc: key stacks do not cover the parts "
+                         "and channels")
+    if _device_kind(x) == "cpu":
+        return ksk_mulacc_plain(x, k0, k1, plan, level, part_off)
+    _check_cuda(x, plan.q, plan.k)
+    for t in (x, k0, k1):
+        if t.device != x.device or t.dtype != torch.int64 or t.stride(2) != 1:
+            raise ValueError("ksk_mulacc: int64 operands on one device with "
+                             "a contiguous coefficient axis")
+    k0v = k0[part_off:part_off + P, level:level + C]
+    k1v = k1[part_off:part_off + P, level:level + C]
+    d0 = torch.empty((C, N), dtype=torch.int64, device=x.device)
+    d1 = torch.empty_like(d0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _fn("ksk_mulacc", "ltt_ksk_mulacc")(
+            x.data_ptr(), x.stride(0), x.stride(1), k0v.data_ptr(),
+            k1v.data_ptr(), k0v.stride(0), k0v.stride(1), P, C, plan.logN,
+            plan.q.data_ptr(), plan.k.data_ptr(), d0.data_ptr(),
+            d1.data_ptr(), stream)
+    _raise_on(rc, "ksk_mulacc")
+    launches["ksk_mulacc"] += 1
+    return d0, d1

@@ -1,0 +1,132 @@
+"""Polynomial modular ops on int64 words [..., C, N].
+
+Pointwise ops take the per-channel constants of a ``LevelPack`` and
+broadcast them over the channel axis (-2). The transforms dispatch to the
+kernel wrappers of ``cuda_ntt``: the CUDA kernel for a CUDA tensor, its
+plain twin for a CPU tensor. They use Shoup-form (plain) twiddles, so they
+return the same values mod q as the Montgomery-twiddle chains, with other
+[0, 2q) representatives.
+
+Every compare keeps the signedness the reference uses: ``reduce_2q``,
+``make_signed``, ``canon_2q`` and the conditional subtracts compare signed.
+"""
+
+import torch
+
+from . import cuda_ntt, u64
+
+__all__ = [
+    "mont_mult", "mont_enter", "mont_enter_scalar", "mont_redc", "mont_add",
+    "mont_sub", "reduce_2q", "canon_2q", "make_signed", "make_unsigned",
+    "tile_unsigned", "fit_channels", "ntt", "intt", "enter_ntt", "intt_exit",
+    "intt_exit_reduce", "intt_reduce",
+]
+
+
+def _col(t):
+    """[C] -> [C, 1], broadcasting over the coefficient axis."""
+    return t[:, None]
+
+
+def _cond_sub(v, m):
+    return torch.where(v < m, v, v - m)
+
+
+# -- pointwise Montgomery ops ----------------------------------------------------
+
+
+def mont_mult(a, b, pack):
+    """a*b*R^-1 mod q; ``a`` may be wrapped-negative (signed semantics)."""
+    return u64.montmul(a, b, *pack.mont())
+
+
+def mont_enter(a, pack):
+    """Enter Montgomery form: multiply by R^2 (-> a*R mod q)."""
+    return mont_mult(a, _col(pack.Rs), pack)
+
+
+def mont_enter_scalar(a, scalar, pack):
+    """Multiply by a per-channel Montgomery-form scalar [C]."""
+    return mont_mult(a, _col(scalar), pack)
+
+
+def mont_redc(a, pack):
+    return u64.montredc(a, *pack.mont())
+
+
+def mont_add(a, b, pack):
+    return _cond_sub(a + b, _col(pack.q2))
+
+
+def mont_sub(a, b, pack):
+    q2 = _col(pack.q2)
+    return _cond_sub(a + q2 - b, q2)
+
+
+def reduce_2q(a, pack):
+    """[0, 2q) -> [0, q)."""
+    return _cond_sub(a, _col(pack.q))
+
+
+def canon_2q(a, pack):
+    """Repair two's-complement negatives in (-2q, 0) to [0, 2q)."""
+    return torch.where(a < 0, a + _col(pack.q2), a)
+
+
+def make_signed(a, pack):
+    """[0, q) -> centred representative in (-q/2, q/2]."""
+    q = _col(pack.q)
+    return torch.where(a <= q >> 1, a, a - q)
+
+
+def make_unsigned(a, pack):
+    return a + _col(pack.q)
+
+
+def tile_unsigned(a, pack):
+    """Broadcast a signed [N] or [1, N] poly to [C, N]: a + q per channel."""
+    return a.reshape(1, -1) + _col(pack.q)
+
+
+def fit_channels(d, W):
+    """Slice or zero-pad the channel axis (-2) to width ``W``."""
+    C = d.shape[-2]
+    if C >= W:
+        return d[..., :W, :]
+    pad = torch.zeros(d.shape[:-2] + (W - C, d.shape[-1]), dtype=d.dtype,
+                      device=d.device)
+    return torch.cat([d, pad], dim=-2)
+
+
+# -- transforms -------------------------------------------------------------------
+
+
+def ntt(a, pack):
+    """Forward negacyclic NTT: natural-order input, bit-reversed output,
+    preserving the Montgomery domain."""
+    return cuda_ntt.ntt_fwd(a, pack.plan)
+
+
+def enter_ntt(a, pack):
+    """Montgomery enter (x R) fused with the forward NTT."""
+    return cuda_ntt.ntt_fwd(a, pack.plan, pre_enter=True)
+
+
+def intt(a, pack):
+    """Inverse NTT with the N^-1 normalisation."""
+    return cuda_ntt.ntt_inv(a, pack.plan)
+
+
+def intt_exit(a, pack):
+    """Inverse NTT fused with the Montgomery exit (x R^-1)."""
+    return cuda_ntt.ntt_inv(a, pack.plan, post_exit=True)
+
+
+def intt_exit_reduce(a, pack):
+    return cuda_ntt.ntt_inv(a, pack.plan, post_exit=True, post_reduce=True)
+
+
+def intt_reduce(a, pack):
+    """Inverse NTT + N^-1 + reduce to [0, q), with NO Montgomery exit (the
+    Shoup-form key switch: its products are already plain)."""
+    return cuda_ntt.ntt_inv(a, pack.plan, post_reduce=True)

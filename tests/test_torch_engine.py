@@ -1,0 +1,163 @@
+"""The port's slice end to end against the JAX package, on the CPU, at the
+shared_eng parameters (logN 8, scale_bits 30, 8 scales, 2 special primes,
+seed 20260816).
+
+Both engines draw from counter-keyed ChaCha20 streams, so with the port's
+stream steps set to the JAX engine's they draw the same words. The stored
+keys are NTT-domain lazy [0, 2q) words: the port's Shoup twiddles give
+other representatives than the JAX CPU path's Montgomery twiddles, so
+keys are compared reduced to [0, q), where they are bit-identical. The
+ciphertexts of encorypt and mult end in a reduce and are compared raw.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import liberate_tpu_torch
+from liberate_tpu.fhe.data_struct import DataStruct as JaxDataStruct
+from liberate_tpu.fhe.data_struct import to_host
+from liberate_tpu.ntt import u64
+from liberate_tpu_torch import interop
+
+PARAMS = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
+              is_secured=False, seed=20260816)
+TOL = 1e-5
+
+
+def _jax_words(x):
+    return u64.to_int64_np(np.asarray(x))
+
+
+def _to_port(ds, device="cpu"):
+    h = to_host(ds)
+
+    def tree(d):
+        if isinstance(d, JaxDataStruct):
+            return (tree(d.data), {k: getattr(d, k) for k in d.__slots__})
+        if isinstance(d, (tuple, list)):
+            return type(d)(tree(t) for t in d)
+        return np.asarray(d)
+
+    return interop.from_reference(
+        tree(h.data), {k: getattr(h, k) for k in h.__slots__}, device)
+
+
+def _to_jax(ds):
+    tree, meta = interop.to_reference_arrays(ds)
+    return JaxDataStruct(tuple(jnp.asarray(t) for t in tree), **meta)
+
+
+@pytest.fixture(scope="module")
+def run(shared_eng, shared_keys):
+    je = shared_eng
+    te = liberate_tpu_torch.CkksEngine(device="cpu", **PARAMS)
+    te.rng.steps[:] = je.rng.steps
+    keys_j = (je.create_secret_key(),)
+    keys_j += (je.create_public_key(keys_j[0]), je.create_evk(keys_j[0]))
+    keys_t = (te.create_secret_key(),)
+    keys_t += (te.create_public_key(keys_t[0]), te.create_evk(keys_t[0]))
+    assert np.array_equal(te.rng.steps, je.rng.steps)
+
+    rng = np.random.default_rng(5)
+    m = rng.uniform(-1, 1, je.num_slots) + 1j * rng.uniform(
+        -1, 1, je.num_slots)
+    ct_j = je.encorypt(m, keys_j[1])
+    ct_t = te.encorypt(m, keys_t[1])
+    return dict(je=je, te=te, keys_j=keys_j, keys_t=keys_t, m=m,
+                ct_j=ct_j, ct_t=ct_t,
+                mult_j=je.mult(ct_j, ct_j, keys_j[2]),
+                mult_t=te.mult(ct_t, ct_t, keys_t[2]),
+                shared_keys=shared_keys)
+
+
+def _canonical_pairs(r, which):
+    """(jax words, port words, moduli) of each polynomial of a key."""
+    q = np.array(r["je"].ctx.q, dtype=np.int64)
+    idx = {"sk": 0, "pk": 1, "evk": 2}[which]
+    kj, kt = r["keys_j"][idx], r["keys_t"][idx]
+    if which == "sk":
+        return [(kj.data, kt.data)], q
+    if which == "pk":
+        return list(zip(kj.data, kt.data)), q
+    return [(a, b) for pj, pt in zip(kj.data, kt.data)
+            for a, b in zip(pj.data, pt.data)], q
+
+
+@pytest.mark.parametrize("which", ["sk", "pk", "evk"])
+def test_keys_bit_identical_mod_q(run, which):
+    pairs, q = _canonical_pairs(run, which)
+    for j, t in pairs:
+        jw, tw = _jax_words(j), t.numpy()
+        qc = q[:jw.shape[0], None]
+        assert np.array_equal(jw % qc, tw % qc)
+
+
+def test_encorypt_bit_identical(run):
+    for j, t in zip(run["ct_j"].data, run["ct_t"].data):
+        assert np.array_equal(_jax_words(j), t.numpy())
+
+
+def test_mult_bit_identical(run):
+    assert run["mult_t"].level == run["mult_j"].level == 1
+    for j, t in zip(run["mult_j"].data, run["mult_t"].data):
+        assert np.array_equal(_jax_words(j), t.numpy())
+
+
+def test_encode_encrypt_decrypt_bit_identical(run):
+    """The separate calls: encode, encrypt, decrypt (to the signed
+    base-prime plaintext), decode."""
+    je, te, m = run["je"], run["te"], run["m"]
+    (sk_j, pk_j, _), (sk_t, pk_t, _) = run["keys_j"], run["keys_t"]
+    te.rng.steps[:] = je.rng.steps
+    pt_j, pt_t = je.encode(m), te.encode(m)
+    assert np.array_equal(_jax_words(pt_j), pt_t.numpy())
+    ct_j, ct_t = je.encrypt(pt_j, pk_j), te.encrypt(pt_t, pk_t)
+    for j, t in zip(ct_j.data, ct_t.data):
+        assert np.array_equal(_jax_words(j), t.numpy())
+    dec_j, dec_t = je.decrypt(ct_j, sk_j), te.decrypt(ct_t, sk_t)
+    assert np.array_equal(_jax_words(dec_j), dec_t.numpy())
+    assert abs(te.absmax_error(te.decode(dec_t), m)) < TOL
+
+
+def test_level_up_bit_identical(run):
+    up_j = run["je"].level_up(run["ct_j"], 2)
+    up_t = run["te"].level_up(run["ct_t"], 2)
+    assert up_t.level == up_j.level == 2
+    for j, t in zip(up_j.data, up_t.data):
+        assert np.array_equal(_jax_words(j), t.numpy())
+
+
+def test_mult_decrode_error(run):
+    m2 = run["m"] * run["m"]
+    err_j = abs(run["je"].absmax_error(
+        run["je"].decrode(run["mult_j"], run["keys_j"][0]), m2))
+    err_t = abs(run["te"].absmax_error(
+        run["te"].decrode(run["mult_t"], run["keys_t"][0]), m2))
+    assert err_t < TOL
+    assert err_t <= 2 * err_j
+
+
+def test_port_ciphertext_decrypts_under_jax(run):
+    """Keys handed JAX -> port: the port encrypts and multiplies with the
+    JAX engine's pk and evk; JAX decrypts with its sk."""
+    je, te, m = run["je"], run["te"], run["m"]
+    sk, pk, evk = run["shared_keys"]
+    ct = te.encorypt(m, _to_port(pk))
+    ct2 = te.mult(ct, ct, _to_port(evk))
+    assert abs(je.absmax_error(je.decrode(_to_jax(ct), sk), m)) < TOL
+    assert abs(je.absmax_error(je.decrode(_to_jax(ct2), sk), m * m)) < TOL
+
+
+def test_jax_ciphertext_decrypts_under_port(run):
+    """Ciphertext and secret key handed JAX -> port."""
+    je, te, m = run["je"], run["te"], run["m"]
+    sk, pk, _ = run["shared_keys"]
+    ct = je.encorypt(m, pk)
+    dec = te.decrode(_to_port(ct), _to_port(sk))
+    assert abs(te.absmax_error(dec, m)) < TOL
+    # And a port ciphertext comes back through to_reference_arrays intact.
+    back = _to_port(_to_jax(run["ct_t"]))
+    for a, b in zip(back.data, run["ct_t"].data):
+        assert torch.equal(a, b)
