@@ -5,17 +5,24 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ``liberate_tpu_torch/csrc`` with
-   nvcc for sm_90a (into ``build/liberate_tpu_torch``).
-3. Holds every kernel against its plain PyTorch twin on the same CUDA
+   nvcc for sm_90a (into ``build/liberate_tpu_torch``), one nvcc per
+   source, all started together.
+3. Times the tensor-core (MXU) table build at silver, without and with
+   the disk cache.
+4. Holds every kernel against its plain PyTorch twin on the same CUDA
    inputs at the silver shapes of the multiply, bit for bit, and times
-   both with CUDA events beside the kernel's bound.
-4. Runs the whole path at logN 8 on the card and on the CPU (twins) from
-   one seed: the keys and ciphertexts must be identical words.
-5. Drives the silver path (keygen -> 2 x encorypt -> mult -> decrode)
-   through the public API with the launch counters zeroed just before;
-   every kernel must have launched, the multiply must have launched all
-   three, and the decoded error must be < 1e-4. Times mult.
-6. Prints the kernels' JSON line and, last, the result line.
+   both with CUDA events beside the kernel's bound: the butterfly kernels
+   (``ntt_fwd``, ``ntt_inv``, ``ksk_mulacc``) and the tensor-core kernels
+   (``mxu_ntt_fwd``, ``mxu_ntt_inv``, ``mxu_switch`` in both modes).
+5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
+   one seed, in both NTT domains: the keys and ciphertexts must be
+   identical words.
+6. Drives the silver path (keygen -> 2 x encorypt -> mult -> decrode)
+   through the public API in each domain, with the launch counters zeroed
+   just before: the multiply must have launched every kernel of its domain
+   and the engine no kernel of the other, and the decoded error must be
+   < 1e-4. Times mult (median of 7) and profiles one.
+7. Prints the kernels' JSON line and, last, the result line.
 
 ``--compile-yardstick`` also times ``torch.compile`` of the
 ``ksk_mulacc`` twin as that kernel's ``library_ms`` (the compile takes
@@ -41,12 +48,18 @@ HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer multiply-adds per second: 64 INT32 lanes per SM, half the
 # 128 FP32 lanes behind the data sheet's 67 TFLOP/s (= 2 x FMA rate).
 INT32_MULS_PER_S = 67e12 / 4
+# Dense int8 tensor-core operations per second (data sheet); one
+# multiply-accumulate is two operations.
+INT8_OPS_PER_S = 1.979e15
 # 32-bit multiplies of one 64-bit modular product: a 64x64 high half
 # needs 4 wide partial products, a 64x64 low half 3.
 SHOUP_MULS = 4 + 3 + 3      # mulhi(x, wp), x*w, hi*q
+BARRETT_MULS = 4 + 3        # mulhi(x, bp), hi*q
 MONT_MULS = 4 + 3 + 4       # a*b (128 bit), m = lo*k, m*q (128 bit)
 # Spin ahead of each timed call: ~1 ms at the H100's 1.98 GHz boost clock.
 SPIN_CYCLES = 2_000_000
+SMALL = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
+             is_secured=False, seed=SEED)
 
 
 def cuda_ms(fn, reps, warmup=5):
@@ -72,11 +85,63 @@ def cuda_ms(fn, reps, warmup=5):
     return statistics.median(times), min(times), max(times)
 
 
-def bound(bytes_moved, int32_muls):
+def bound(bytes_moved, int32_muls, int8_macs=0):
+    """(ms, what bounds it): the larger of the bytes over the memory rate,
+    the 32-bit multiplies over the INT32 rate and the int8 tensor-core
+    operations over the int8 rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = int32_muls / INT32_MULS_PER_S
+    t_ops = max(int32_muls / INT32_MULS_PER_S,
+                2 * int8_macs / INT8_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def recombine_muls(d):
+    """32-bit multiplies of one recombination at d digits: the Barrett
+    reduction of the low part, a Shoup product of the high part."""
+    return BARRETT_MULS + (SHOUP_MULS if d > 5 else 0)
+
+
+def mxu_table_bytes(d, S, R, N):
+    """Bytes of one channel's tables for one transform: the two int8
+    stage tables, their int32 row sums, the int64 twiddles."""
+    return d * d * (S * S + R * R) + 4 * d * (S + R) + 8 * N
+
+
+def mxu_ntt_work(groups, B, S, R):
+    """(bytes, int32 multiplies, int8 MACs) of one transform of B
+    polynomials over a layout's width groups: data read and written once,
+    each channel's tables once; per element two recombinations and the
+    twiddle product."""
+    N = S * R
+    by = muls = macs = 0
+    for g in groups:
+        C, d = g.hi - g.lo, g.plan.dA
+        by += 16 * B * C * N + C * mxu_table_bytes(d, S, R, N)
+        muls += B * C * N * (2 * recombine_muls(d) + MONT_MULS)
+        macs += B * C * d * d * N * (S + R)
+    return by, muls, macs
+
+
+def mxu_switch_work(groups, P, A, n_sp, S, R):
+    """The same for the fused switch of one ciphertext: the state rows,
+    the Shoup key pairs of both halves for every part and channel, the
+    forward and inverse tables, the output rows and the exported rows;
+    P forward and 2 inverse transforms per channel, the extension, the key
+    products and the mod-down steps."""
+    N = S * R
+    by = 8 * P * A * N + 2 * 8 * 2 * n_sp * N
+    muls = macs = 0
+    for g in groups:
+        C, d = g.hi - g.lo, g.plan.dA
+        tr = 2 * recombine_muls(d) + MONT_MULS
+        by += C * (4 * 8 * P * N + 2 * mxu_table_bytes(d, S, R, N)
+                   + 2 * 8 * N)
+        muls += C * N * (P * (BARRETT_MULS + (A - 1) * SHOUP_MULS + tr
+                              + 2 * SHOUP_MULS)
+                         + 2 * (tr + n_sp * (BARRETT_MULS + SHOUP_MULS)))
+        macs += C * d * d * N * (S + R) * (P + 2)
+    return by, muls, macs
 
 
 def random_words(q, shape, gen, lazy=False):
@@ -90,6 +155,128 @@ def random_words(q, shape, gen, lazy=False):
     return r % (q[:, None] * (2 if lazy else 1))
 
 
+def check_case(name, label, fn, twin, b, rows, src, replaces,
+               library=None):
+    """Hold fn() bit for bit against twin() (tensors or tuples of them),
+    time both, and keep the first case of each kernel as its row."""
+    import torch
+
+    got, want = fn(), twin()
+    got = torch.stack(got) if isinstance(got, tuple) else got
+    want = torch.stack(want) if isinstance(want, tuple) else want
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} [{label}]: kernel != twin "
+                             f"(max |diff| {err})")
+    ms, ms_lo, ms_hi = cuda_ms(fn, 100)
+    plain_ms = cuda_ms(twin, 3, warmup=1)[0]
+    library_ms = library() if library else None
+    b_ms, b_by = b
+    print(f"{name} [{label}]: bit-equal to twin; kernel {ms:.4f} ms "
+          f"(min {ms_lo:.4f}, max {ms_hi:.4f}), twin {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), library {library_ms} ms")
+    if name not in rows:
+        rows[name] = dict(name=name, route="cuda", source=src,
+                          replaces=replaces, launches=0,
+                          max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=library_ms)
+
+
+def counters():
+    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
+
+    return {**cuda_ntt.launches, **cuda_mxu.launches}
+
+
+def reset_counters():
+    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
+
+    cuda_ntt.reset_launches()
+    cuda_mxu.reset_launches()
+
+
+def drive_silver(eng, domain, own, other, rows):
+    """keygen -> 2 x encorypt -> mult -> decrode through the public API
+    with the counters zeroed just before; checks the error, that mult
+    launched every kernel of the domain (``own``) and that the engine
+    launched none of ``other``; times mult and profiles one."""
+    import numpy as np
+    import torch
+
+    reset_counters()
+    t = time.perf_counter()
+    sk = eng.create_secret_key()
+    pk = eng.create_public_key(sk)
+    evk = eng.create_evk(sk)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t
+    rng = np.random.default_rng(SEED)
+    m1 = rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
+        -1, 1, eng.num_slots)
+    m2 = rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
+        -1, 1, eng.num_slots)
+    ct1 = eng.encorypt(m1, pk)
+    ct2 = eng.encorypt(m2, pk)
+    before = counters()
+    ctm = eng.mult(ct1, ct2, evk)
+    torch.cuda.synchronize()
+    during = {k: v - before[k] for k, v in counters().items()}
+    dec = eng.decrode(ctm, sk)
+    path = counters()
+    err = abs(eng.absmax_error(dec, m1 * m2))
+    print(f"silver {domain} path: keys {t_keys:.2f} s, mult -> level "
+          f"{ctm.level}, |err| {err:.3e}, launches {path}, in mult {during}")
+    C = eng.ntt.num_channels(ctm.level, -1)
+    for c in ctm.data:
+        if tuple(c.shape) != (C, eng.ctx.N) or c.device.type != "cuda":
+            raise AssertionError(f"mult output shape {tuple(c.shape)}")
+    if not err < 1e-4:
+        raise AssertionError(f"silver {domain} mult error {err} >= 1e-4")
+    for k in own:
+        if during[k] <= 0:
+            raise AssertionError(f"{k} was not launched by mult")
+        rows[k]["launches"] = path[k]
+    for k in other:
+        if path[k] != 0:
+            raise AssertionError(f"the {domain} engine launched {k}")
+
+    times = []
+    eng.mult(ct1, ct2, evk)
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.mult(ct1, ct2, evk)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    print(f"silver {domain} mult: median {statistics.median(times):.3f} ms "
+          f"over {len(times)} runs (min {min(times):.3f}, max "
+          f"{max(times):.3f}); launches per mult {during}")
+
+    # Where a mult's device time goes (torch.profiler; single stream, so
+    # kernel times add up to the busy time).
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            eng.mult(ct1, ct2, evk)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
+    print(f"profile ({domain}): {wall:.3f} ms/mult wall with the profiler "
+          f"on, device busy {busy:.3f} ms/mult ({len(kern)} kernel names)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/mult "
+              f"x{e.count // reps} {e.key[:100]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compile-yardstick", action="store_true",
@@ -100,7 +287,6 @@ def main():
         # torch.compile compiles in this process instead of a pool of
         # worker processes that could outlive the script.
         os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -116,7 +302,9 @@ def main():
 
     import liberate_tpu_torch
     from liberate_tpu_torch import _build
-    from liberate_tpu_torch.ntt import cuda_ntt
+    from liberate_tpu_torch.fhe.context.ckks_context import CkksContext
+    from liberate_tpu_torch.fhe.engine import _ksk_shoup
+    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt, mxu_ntt
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,12 +327,35 @@ def main():
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    silver = liberate_tpu_torch.params["silver"]
 
-    # -- 3. kernels against their twins at the silver shapes ---------------------
+    # -- 3. the tensor-core tables at silver: build, cache write, cache read -------
+    ctx = CkksContext(**{k: v for k, v in silver.items()
+                         if k != "mesh_shape"})
+    for p in Path(ctx.cache_folder).glob("mxu_*.pt"):
+        p.unlink()
+    times = []
+    for cache in (False, True, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mxu_ntt.group_plans(ctx, dev, cache=cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    print(f"MXU tables at silver ({len(ctx.q)} channels, groups "
+          f"{[(lo, hi, d) for lo, hi, d in mxu_ntt.width_groups(ctx.q)]}): "
+          f"build {times[0]:.3f} s uncached, {times[1]:.3f} s building and "
+          f"writing the cache, {times[2]:.3f} s read from the cache")
+
+    # -- 4. kernels against their twins at the silver shapes ---------------------
     t = time.perf_counter()
-    eng = liberate_tpu_torch.CkksEngine(**liberate_tpu_torch.params["silver"],
-                                        seed=SEED)
+    eng = liberate_tpu_torch.CkksEngine(**silver, seed=SEED)
     print(f"silver engine (context, tables): "
+          f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    eng_mxu = liberate_tpu_torch.CkksEngine(**silver, seed=SEED,
+                                            use_mxu_ntt=True)
+    print(f"silver MXU engine (context, cached tables): "
           f"{time.perf_counter() - t:.2f} s")
     level = 1
     pack = eng.pack(level, -1)
@@ -156,10 +367,11 @@ def main():
     print(f"silver shapes at level {level}: N={N} C={C} C_sp={C_sp} P={P} "
           f"C0_sp={C0_sp} part_off={parts[0].part_id}")
 
+    rows = {}
     k0 = random_words(eng.pack(0, -2).q, (len(eng.ntt.parts(0)), C0_sp, N),
                       gen, lazy=True)
     k1 = random_words(eng.pack(0, -2).q, k0.shape, gen, lazy=True)
-    cases = [
+    butterfly = [
         ("ntt_fwd", f"B=4 C={C} pre_enter (_cc_mult_core)",
          (random_words(pack.q, (4, C, N), gen), pack.plan),
          dict(pre_enter=True)),
@@ -186,150 +398,110 @@ def main():
                "ksk_mulacc": (cuda_ntt.ksk_mulacc, cuda_ntt.ksk_mulacc_plain,
                               "liberate_tpu_torch/csrc/ksk_mulacc.cu",
                               "liberate_tpu/ntt/pallas_ntt.py:693")}
-    rows = {}
-    for name, label, args, kw in cases:
+    for name, label, args, kw in butterfly:
         fn, twin, src, replaces = kernels[name]
-        got = fn(*args, **kw)
-        want = twin(*args, **kw)
-        got = torch.stack(got) if isinstance(got, tuple) else got
-        want = torch.stack(want) if isinstance(want, tuple) else want
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} [{label}]: kernel != twin "
-                                 f"(max |diff| {err})")
-        ms, ms_lo, ms_hi = cuda_ms(lambda: fn(*args, **kw), 100)
-        plain_ms = cuda_ms(lambda: twin(*args, **kw), 3, warmup=1)[0]
-        library_ms = None
-        if name == "ksk_mulacc" and opts.compile_yardstick:
-            # Yardstick only, used nowhere in the port: what torch.compile
-            # makes of the plain twin (no PyTorch call computes a modular
-            # product of 62-bit words).
-            t = time.perf_counter()
-            compiled = torch.compile(twin)
-            if not torch.equal(torch.stack(compiled(*args)), want):
-                raise AssertionError("compiled ksk_mulacc twin differs")
-            print(f"  torch.compile of the twin: "
-                  f"{time.perf_counter() - t:.1f} s")
-            library_ms = cuda_ms(lambda: compiled(*args), 100)[0]
+        library = None
         if name == "ksk_mulacc":
             x = args[0]
             words = x.numel() * 3 + 2 * C_sp * N
-            b_ms, b_by = bound(8 * words, 2 * x.numel() * MONT_MULS)
+            b = bound(8 * words, 2 * x.numel() * MONT_MULS)
+            if opts.compile_yardstick:
+                def library(twin=twin, args=args):
+                    # Yardstick only, used nowhere in the port: what
+                    # torch.compile makes of the plain twin (no PyTorch
+                    # call computes a modular product of 62-bit words).
+                    t = time.perf_counter()
+                    compiled = torch.compile(twin)
+                    if not torch.equal(torch.stack(compiled(*args)),
+                                       torch.stack(twin(*args))):
+                        raise AssertionError("compiled ksk_mulacc twin "
+                                             "differs")
+                    print(f"  torch.compile of the twin: "
+                          f"{time.perf_counter() - t:.1f} s")
+                    return cuda_ms(lambda: compiled(*args), 100)[0]
         else:
             x = args[0]
-            B = x.shape[0]
-            cx = x.shape[1]
+            B, cx = x.shape[0], x.shape[1]
             muls = B * cx * (N // 2) * logN
             if name == "ntt_inv" or kw.get("pre_enter"):
                 muls += B * cx * N          # the exit or entry multiply
-            b_ms, b_by = bound(8 * (2 * x.numel() + 2 * cx * N),
-                               muls * SHOUP_MULS)
-        print(f"{name} [{label}]: bit-equal to twin; kernel {ms:.4f} ms "
-              f"(min {ms_lo:.4f}, max {ms_hi:.4f}), twin {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"library {library_ms} ms")
-        if name not in rows:
-            rows[name] = dict(name=name, route="cuda", source=src,
-                              replaces=replaces, launches=0,
-                              max_abs_err=float(err), ms=ms,
-                              plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=library_ms)
+            b = bound(8 * (2 * x.numel() + 2 * cx * N), muls * SHOUP_MULS)
+        check_case(name, label, lambda: fn(*args, **kw),
+                   lambda: twin(*args, **kw), b, rows, src, replaces,
+                   library)
 
-    # -- 4. the path at logN 8: card against the CPU twins -----------------------
-    small = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
-                 is_secured=False, seed=SEED)
-    outs = []
-    for device in ("cuda:0", "cpu"):
-        e = liberate_tpu_torch.CkksEngine(device=device, **small)
-        sk = e.create_secret_key()
-        pk = e.create_public_key(sk)
-        evk = e.create_evk(sk)
-        m = (torch.arange(e.num_slots, dtype=torch.float64) / e.num_slots
-             ).numpy()
-        ct = e.encorypt(m, pk)
-        ctm = e.mult(ct, ct, evk)
-        outs.append([t.to("cpu") for t in (sk.data, *pk.data, *ct.data,
-                                           *ctm.data)])
-        err = abs(e.absmax_error(e.decrode(ctm, sk), m * m))
-        if not err < 1e-5:
-            raise AssertionError(f"logN 8 on {device}: mult error {err}")
-    if not all(torch.equal(a, b) for a, b in zip(*outs)):
-        raise AssertionError("logN 8: the card's keys or ciphertexts "
-                             "differ from the CPU twins'")
-    print("logN 8 path: card and CPU twins give identical keys and "
-          "ciphertexts")
+    # The tensor-core kernels at the shapes of the silver MXU mult.
+    mpack = eng_mxu.pack(level, -1)
+    mpack_sp = eng_mxu.pack(level, -2)
+    S, R = mpack.mxu[0].plan.S, mpack.mxu[0].plan.R
+    A = max(p.alpha for p in parts)
+    x4 = random_words(mpack.q, (4, C, N), gen, lazy=True)
+    x3 = random_words(mpack.q, (3, C, N), gen, lazy=True)
+    st = torch.randint(0, 1 << 62, (P, A, N), generator=gen, device=dev,
+                       dtype=torch.int64)
+    pack0 = eng_mxu.pack(0, -2)
+    ks = (_ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0))
+    terms, off0, piw = eng_mxu._mxu_switch_tables(level)
+    sw_args = (st, terms, off0, piw, *ks, mpack_sp.mxu, level,
+               parts[0].part_id, eng_mxu.num_special)
+    src = "liberate_tpu_torch/csrc/"
+    mxu_cases = [
+        ("mxu_ntt_fwd", f"B=4 C={C} enter (_cc_mult_core), "
+         f"{len(mpack.mxu)} groups",
+         lambda p: cuda_mxu.dispatch(x4, mpack.mxu, enter=True, plain=p),
+         mxu_ntt_work(mpack.mxu, 4, S, R), "mxu_ntt.cu",
+         "liberate_tpu/ntt/mxu_pallas.py:143"),
+        ("mxu_ntt_inv", f"B=3 C={C} exitx+reduce (_relin_pre), "
+         f"{len(mpack.mxu)} groups",
+         lambda p: cuda_mxu.dispatch(x3, mpack.mxu, inverse=True, exitx=True,
+                                     post_reduce=True, plain=p),
+         mxu_ntt_work(mpack.mxu, 3, S, R), "mxu_ntt.cu",
+         "liberate_tpu/ntt/mxu_pallas.py:163"),
+        ("mxu_switch", f"P={P} C_sp={C_sp} A={A} level={level}, special "
+         f"then ordinary mode",
+         lambda p: cuda_mxu.dispatch_switch(*sw_args, plain=p),
+         mxu_switch_work(mpack_sp.mxu, P, A, eng_mxu.num_special, S, R),
+         "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:815"),
+    ]
+    for name, label, run, work, file, replaces in mxu_cases:
+        by, muls, macs = work
+        print(f"  {name} work: {by} bytes, {muls} 32-bit multiplies, "
+              f"{macs} int8 MACs")
+        check_case(name, label, lambda run=run: run(False),
+                   lambda run=run: run(True), bound(by, muls, macs), rows,
+                   src + file, replaces)
 
-    # -- 5. the silver path through the public API --------------------------------
-    cuda_ntt.reset_launches()
-    t = time.perf_counter()
-    sk = eng.create_secret_key()
-    pk = eng.create_public_key(sk)
-    evk = eng.create_evk(sk)
-    torch.cuda.synchronize()
-    t_keys = time.perf_counter() - t
-    rng = np.random.default_rng(SEED)
-    m1 = rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
-        -1, 1, eng.num_slots)
-    m2 = rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
-        -1, 1, eng.num_slots)
-    ct1 = eng.encorypt(m1, pk)
-    ct2 = eng.encorypt(m2, pk)
-    before = dict(cuda_ntt.launches)
-    ctm = eng.mult(ct1, ct2, evk)
-    torch.cuda.synchronize()
-    during = {k: cuda_ntt.launches[k] - before[k] for k in before}
-    dec = eng.decrode(ctm, sk)
-    path_launches = dict(cuda_ntt.launches)
-    err = abs(eng.absmax_error(dec, m1 * m2))
-    print(f"silver path: keys {t_keys:.2f} s, mult -> level {ctm.level}, "
-          f"|err| {err:.3e}, launches {path_launches}, "
-          f"in mult {during}")
-    for c in ctm.data:
-        if tuple(c.shape) != (C, N) or c.device.type != "cuda":
-            raise AssertionError(f"mult output shape {tuple(c.shape)}")
-    if not err < 1e-4:
-        raise AssertionError(f"silver mult error {err} >= 1e-4")
-    for k, v in during.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched by mult")
-    for k, v in path_launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched on the path")
-        rows[k]["launches"] = v
+    # -- 5. the path at logN 8: card against the CPU twins -----------------------
+    for use_mxu in (False, True):
+        domain = "MXU" if use_mxu else "butterfly"
+        outs = []
+        for device in ("cuda:0", "cpu"):
+            e = liberate_tpu_torch.CkksEngine(device=device,
+                                              use_mxu_ntt=use_mxu, **SMALL)
+            sk = e.create_secret_key()
+            pk = e.create_public_key(sk)
+            evk = e.create_evk(sk)
+            m = (torch.arange(e.num_slots, dtype=torch.float64)
+                 / e.num_slots).numpy()
+            ct = e.encorypt(m, pk)
+            ctm = e.mult(ct, ct, evk)
+            outs.append([t.to("cpu") for t in (sk.data, *pk.data, *ct.data,
+                                               *ctm.data)])
+            err = abs(e.absmax_error(e.decrode(ctm, sk), m * m))
+            if not err < 1e-5:
+                raise AssertionError(f"logN 8 {domain} on {device}: mult "
+                                     f"error {err}")
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"logN 8 {domain}: the card's keys or "
+                                 f"ciphertexts differ from the CPU twins'")
+        print(f"logN 8 {domain} path: card and CPU twins give identical "
+              f"keys, ciphertexts and mult output")
 
-    times = []
-    eng.mult(ct1, ct2, evk)
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.mult(ct1, ct2, evk)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    print(f"silver mult: median {statistics.median(times):.3f} ms over "
-          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}); "
-          f"launches per mult {during}")
-
-    # Where a mult's device time goes (torch.profiler; single stream, so
-    # kernel times add up to the busy time).
-    from torch.profiler import ProfilerActivity, profile
-
-    reps = 3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            eng.mult(ct1, ct2, evk)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / reps
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
-    print(f"profile: {wall:.3f} ms/mult wall with the profiler on, device "
-          f"busy {busy:.3f} ms/mult ({len(kern)} kernel names)")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/mult "
-              f"x{e.count // reps} {e.key[:100]}")
+    # -- 6. the silver path through the public API, in each domain ---------------
+    drive_silver(eng, "butterfly", list(cuda_ntt.launches),
+                 list(cuda_mxu.launches), rows)
+    drive_silver(eng_mxu, "MXU", list(cuda_mxu.launches),
+                 list(cuda_ntt.launches), rows)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

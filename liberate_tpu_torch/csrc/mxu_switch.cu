@@ -1,0 +1,238 @@
+// The fused key switch of one width group on the tensor-core NTT, with the
+// special-prime mod-down folded in.
+//
+// Replaces: liberate_tpu/ntt/mxu_pallas.py `_make_md_kernel` (:815, body
+// :839), launched per width group by `_ksk_from_state_md_call` (:1039) and
+// `dispatch_ksk_from_state` (:1127), in both modes: `special` (the group
+// holding the special primes: its dropped rows are iterated and exported)
+// and `ordinary` (the other groups: they consume the exported rows). Per
+// (channel, part) it computes the Shoup basis extension of the part's raw
+// divided-difference state, the forward four-step transform, both Shoup
+// key products, the sum over the parts (a conditional subtract after each
+// add), the inverse transform of both sums with the plain reduce, and the
+// removal of the special primes. Same words as the Pallas kernel, with
+// its lazy representatives (which differ from engine._mod_down_shoup's
+// for more than two special primes).
+//
+// What bounds it on the H100: about equally the int8 multiply-accumulates
+// of the P forward and two inverse transforms per channel and the bytes of
+// the Shoup-form key (value and quotient of both halves: 32 bytes per
+// coefficient, channel and part), then the tables.
+//
+// Design: the Pallas kernel walks the parts sequentially per channel with
+// both sums in VMEM; Hopper blocks run in no order, and a channel does not
+// fit a block. So the switch is six launches through global memory (L2):
+//   1. the extension of every part onto every channel, elementwise (once
+//      per word: the stage blocks of one channel would each repeat it);
+//   2. stage 1 of the forward transform of every part;
+//   3. stage 2, where each block loops over the parts of its tile and
+//      keeps both key-product sums in registers;
+//   4./5. the two inverse stages of both sums, the last with the reduce;
+//   6. the mod-down fold, its own launch (the next slice's switch without
+//      mod-down is launches 1-5): one thread per (half, coefficient) walks
+//      the special group's dropped rows in drop order, exports them, and
+//      applies the removal steps to every ordinary channel of the group.
+//      The cross-channel dependency of the dropped rows is thereby inside
+//      one thread, and the dependency between groups is the launch order.
+#include "mxu.cuh"
+
+using mxu::Stage;
+
+namespace {
+
+constexpr int kMaxSpecial = 8;
+constexpr int kThreads = 256;
+
+// The Shoup basis extension of part p onto channel c: every state row may
+// be wrapped-signed, so each is offset by 2^63 and corrected per channel
+// (liberate_tpu/ntt/mxu_pallas.py:862-872). Grid (N / kThreads, C, P).
+__global__ void extend(const u64* st, int A, int N, const u64* terms,
+                       int nterms, int ldc, const u64* off0, const u64* qv,
+                       const u64* bpv, u64* ext) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int c = blockIdx.y, p = blockIdx.z, C = gridDim.y;
+  const u64 q = qv[c], q2 = 2 * q;
+  const u64* s = st + (long long)p * A * N + n;
+  u64 acc = mxu::csub_u(mxu::barrett_2q(s[0] + mxu::kTop, bpv[c], q) + off0[c],
+                        q2);
+  for (int i = 1; i < A; ++i) {
+    const u64* tm = terms + (long long)((p * nterms + i - 1) * 3) * ldc + c;
+    const u64 e = mxu::csub_u(
+        shoup_mul(s[(long long)i * N] + mxu::kTop, tm[0], tm[ldc], q) +
+            tm[2 * ldc],
+        q2);
+    acc = mxu::csub_u(acc + e, q2);
+  }
+  ext[((long long)p * C + c) * N + n] = acc;
+}
+
+// One removal step: (v + 2q - (src mod q)) * P_j^-1, a Shoup product.
+__device__ __forceinline__ u64 md_iter(u64 v, u64 src, u64 w, u64 wp, u64 q,
+                                       u64 bp) {
+  const u64 tile = mxu::barrett_2q(src, bp, q);
+  return shoup_mul(v + 2 * q - tile, w, wp, q);
+}
+
+// r: the group's reduced rows [2][C] with strides (r_sh, N); special: the
+// group's last n_sp channels are the dropped ones (last first); srcs:
+// [2 * n_sp, N] rows, written in the special mode and read otherwise.
+// piw: [n_sp, 2, ldc] (P_j^-1 and its Shoup quotient per channel).
+__global__ void fold(u64* r, long long r_sh, int C, int N, int n_sp,
+                     int special, const u64* srcs_in, u64* srcs_out,
+                     const u64* piw, int ldc, const u64* qv,
+                     const u64* bpv) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 2LL * N) return;
+  const int half = (int)(idx / N);
+  const long long n = idx % N;
+  u64* rh = r + half * r_sh;
+  u64 src[kMaxSpecial];
+  if (special) {
+    for (int kk = 0; kk < n_sp; ++kk) {
+      const int ch = C - 1 - kk;
+      const u64 q = qv[ch], bp = bpv[ch];
+      u64 v = rh[(long long)ch * N + n];
+      for (int j = 0; j < kk; ++j)
+        v = mxu::csub_u(md_iter(v, src[j], piw[(2 * j) * ldc + ch],
+                                piw[(2 * j + 1) * ldc + ch], q, bp),
+                        q);
+      src[kk] = v;
+      srcs_out[(long long)(half * n_sp + kk) * N + n] = v;
+    }
+  } else {
+    for (int kk = 0; kk < n_sp; ++kk)
+      src[kk] = srcs_in[(long long)(half * n_sp + kk) * N + n];
+  }
+  const int nord = special ? C - n_sp : C;
+  for (int ch = 0; ch < nord; ++ch) {
+    const u64 q = qv[ch], bp = bpv[ch];
+    u64 v = rh[(long long)ch * N + n];
+    for (int j = 0; j < n_sp; ++j)
+      v = md_iter(v, src[j], piw[(2 * j) * ldc + ch],
+                  piw[(2 * j + 1) * ldc + ch], q, bp);
+    rh[(long long)ch * N + n] = mxu::csub_u(v, q);
+  }
+}
+
+}  // namespace
+
+// st: [P, A, N] raw state rows; terms: [P, nterms, 3, ldc] and piw:
+// [n_sp, 2, ldc] (pointers at the group's first channel); off0: [C].
+// k*: the Shoup-form key stacks [P_full, C0, N] at (part_off, first key
+// channel) with strides (k_sp, k_sc, 1). ext, inter1: scratch [P, C, N];
+// acc, inter2: scratch [2, C, N]; out: [2][C][N] with strides
+// (out_sh, N, 1). m1 .. ir2: the group's tables; q .. corr: [C].
+extern "C" int ltt_mxu_switch(
+    int d, int special, int n_sp, const void* st, int P, int A,
+    const void* terms, int nterms, int ldc, const void* off0,
+    const void* piw, const void* k0w, const void* k0wp, const void* k1w,
+    const void* k1wp, long long k_sp, long long k_sc, const void* srcs_in,
+    void* srcs_out, void* ext, void* inter1, void* acc, void* inter2,
+    void* out,
+    long long out_sh, int C, int logN, const void* m1, const void* r1,
+    const void* tw, const void* m2, const void* r2, const void* i1,
+    const void* ir1, const void* itw, const void* i2, const void* ir2,
+    const void* q, const void* k, const void* bp, const void* whi,
+    const void* wphi, const void* corr, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_sp > kMaxSpecial) return -1;
+  const int N = 1 << logN;
+  const int S = 1 << ((logN + 1) / 2);
+  const int R = N / S;
+  const long long CN = (long long)C * N;
+
+  // 1. the extension of every part
+  extend<<<dim3((unsigned)((N + kThreads - 1) / kThreads), C, P), kThreads,
+           0, s>>>((const u64*)st, A, N, (const u64*)terms, nterms, ldc,
+                   (const u64*)off0, (const u64*)q, (const u64*)bp,
+                   (u64*)ext);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+
+  // 2. forward stage 1 of every part
+  Stage a = mxu::shape(S, S, R, N);
+  a.q = (const u64*)q;
+  a.k = (const u64*)k;
+  a.bp = (const u64*)bp;
+  a.whi = (const u64*)whi;
+  a.wphi = (const u64*)wphi;
+  a.corr = (const u64*)corr;
+  a.x = (const u64*)ext;
+  a.x_sb = CN;
+  a.x_sc = N;
+  a.y = (u64*)inter1;
+  a.y_sb = CN;
+  a.y_sc = N;
+  a.table = (const int8_t*)m1;
+  a.rs = (const int*)r1;
+  a.tw = (const u64*)tw;
+  a.tw_t = 0;
+  rc = mxu::launch<mxu::kRows, mxu::kTwiddle>(d, a, P, C, s);
+  if (rc != 0) return rc;
+
+  // 3. forward stage 2, both key products summed over the parts
+  Stage b = a;
+  b.O = b.K = R;
+  b.J = S;
+  b.x = (const u64*)inter1;
+  b.x_sb = CN;
+  b.x_sc = N;
+  b.y = (u64*)acc;
+  b.y_sb = CN;
+  b.y_sc = N;
+  b.table = (const int8_t*)m2;
+  b.rs = (const int*)r2;
+  b.tw = nullptr;
+  b.k0w = (const u64*)k0w;
+  b.k0wp = (const u64*)k0wp;
+  b.k1w = (const u64*)k1w;
+  b.k1wp = (const u64*)k1wp;
+  b.k_sp = k_sp;
+  b.k_sc = k_sc;
+  b.P = P;
+  rc = mxu::launch<mxu::kCols, mxu::kKsk>(d, b, 1, C, s);
+  if (rc != 0) return rc;
+
+  // 4. inverse stage 1 of both sums
+  Stage c = mxu::shape(R, R, S, N);
+  c.q = a.q;
+  c.k = a.k;
+  c.bp = a.bp;
+  c.whi = a.whi;
+  c.wphi = a.wphi;
+  c.corr = a.corr;
+  c.x = (const u64*)acc;
+  c.x_sb = CN;
+  c.x_sc = N;
+  c.y = (u64*)inter2;
+  c.y_sb = CN;
+  c.y_sc = N;
+  c.table = (const int8_t*)i1;
+  c.rs = (const int*)ir1;
+  c.tw = (const u64*)itw;
+  c.tw_t = 1;
+  rc = mxu::launch<mxu::kRows, mxu::kTwiddle>(d, c, 2, C, s);
+  if (rc != 0) return rc;
+
+  // 5. inverse stage 2 with the reduce to [0, q)
+  Stage e = c;
+  e.O = e.K = S;
+  e.J = R;
+  e.x = (const u64*)inter2;
+  e.y = (u64*)out;
+  e.y_sb = out_sh;
+  e.table = (const int8_t*)i2;
+  e.rs = (const int*)ir2;
+  e.tw = nullptr;
+  e.post_reduce = 1;
+  rc = mxu::launch<mxu::kCols, mxu::kOut>(d, e, 2, C, s);
+  if (rc != 0) return rc;
+
+  // 6. the mod-down fold
+  fold<<<(unsigned)((2LL * N + kThreads - 1) / kThreads), kThreads, 0, s>>>((u64*)out, out_sh, C, N, n_sp, special,
+                                  (const u64*)srcs_in, (u64*)srcs_out,
+                                  (const u64*)piw, ldc, (const u64*)q,
+                                  (const u64*)bp);
+  return (int)cudaGetLastError();
+}

@@ -13,6 +13,13 @@ switch (basis extension, forward transform, key multiply-accumulate over
 gadget parts, inverse transform, special-prime mod-down). Rescale,
 extension and mod-down are plain torch ops; the transforms and the key
 multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``.
+
+With ``use_mxu_ntt=True`` (the JAX package's ``config.use_mxu_ntt`` path
+for its accelerator) every transform runs in the tensor-core kernels of
+``ntt.cuda_mxu`` (natural-order NTT domain), and the key switch is one
+fused kernel per width group: extension from the raw divided-difference
+state, transform, Shoup-form key products summed over the parts, inverse,
+and the special-prime mod-down.
 """
 
 import math
@@ -23,7 +30,7 @@ import torch
 
 from ..csprng import Csprng
 from ..device import resolve_device
-from ..ntt import cuda_ntt, ops, u64
+from ..ntt import cuda_mxu, cuda_ntt, ops, u64
 from ..ntt.ntt_context import NttContext
 from ..version import VERSION
 from .context.ckks_context import CkksContext
@@ -206,6 +213,13 @@ def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
     return acc
 
 
+def _ksk_shoup(k, pack):
+    """Montgomery-form key words [..., C, N] -> the Shoup pair (w, wp): the
+    plain value w = REDC(k) in [0, q) and floor(w * 2^64 / q)."""
+    w = ops.reduce_2q(ops.mont_redc(k, pack), pack)
+    return w, u64.shoup_quotient(w, pack.q[:, None])
+
+
 @errors.log_error
 class CkksEngine:
     """The user-facing CKKS engine (this slice: keys, encode/encrypt,
@@ -213,21 +227,26 @@ class CkksEngine:
 
     ``device``: where every tensor lives; ``None`` means ``cuda:0`` and
     raises when no CUDA device is present. ``device="cpu"`` runs the
-    kernels' plain twins.
+    kernels' plain twins. ``use_mxu_ntt``: run every transform and the key
+    switch in the tensor-core kernels (natural-order NTT domain) instead of
+    the butterfly kernels; one engine uses one domain throughout, and its
+    keys and ciphertexts are for engines of the same domain.
     """
 
     def __init__(self, device=None, verbose: bool = False,
                  bias_guard: bool = True, norm: str = "forward",
-                 seed=None, mesh_shape=None, **ctx_params):
+                 seed=None, mesh_shape=None, use_mxu_ntt: bool = False,
+                 **ctx_params):
         if mesh_shape not in (None, 1):
             raise ValueError("the port runs on one device (mesh_shape=None)")
         self.device = resolve_device(device)
         self.bias_guard = bias_guard
         self.norm = norm
         self.version = VERSION
+        self.use_mxu_ntt = bool(use_mxu_ntt)
 
         self.ctx = CkksContext(verbose=verbose, **ctx_params)
-        self.ntt = NttContext(self.ctx, self.device)
+        self.ntt = NttContext(self.ctx, self.device, use_mxu=self.use_mxu_ntt)
 
         # The deepest usable level.
         self.num_levels = self.ntt.num_levels - 1
@@ -248,6 +267,7 @@ class CkksEngine:
         self._create_ksk_rescales()
         self._create_rescale_scales()
         self._ksk_stacked_cache = OrderedDict()
+        self._mxu_switch_cache = {}
 
         self.mult_dispatch = {(DataStruct, DataStruct): self.auto_cc_mult}
 
@@ -449,12 +469,19 @@ class CkksEngine:
     def _ksk_stacked(self, ksk: DataStruct):
         """Key halves stacked once per key: [P_full, C0_sp, N] x 2. The
         switch reads the level's channels and the active parts through
-        strides, without slicing copies. Small LRU keyed by identity."""
+        strides, without slicing copies. Small LRU keyed by identity.
+
+        Tensor-core domain: each half in Shoup form, a pair of the plain
+        value w = REDC(k) in [0, q) and its quotient floor(w 2^64 / q), so
+        the switch kernel's key products are Shoup products."""
         if ksk in self._ksk_stacked_cache:
             self._ksk_stacked_cache.move_to_end(ksk)
             return self._ksk_stacked_cache[ksk]
         k0 = torch.stack([part.data[0] for part in ksk.data])
         k1 = torch.stack([part.data[1] for part in ksk.data])
+        if self.use_mxu_ntt:
+            pack0 = self.pack(0, -2)
+            k0, k1 = _ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0)
         self._ksk_stacked_cache[ksk] = (k0, k1)
         if len(self._ksk_stacked_cache) > 16:
             self._ksk_stacked_cache.popitem(last=False)
@@ -584,6 +611,8 @@ class CkksEngine:
     def _switch(self, a, ksk: DataStruct, level: int):
         """Key-switch a [C_ord, N] (plain [0, q), coefficient domain):
         returns (d0, d1) over the ordinary channels in [0, q)."""
+        if self.use_mxu_ntt:
+            return self._switch_mxu(a, ksk, level)
         parts = self.ntt.parts(level)
         pack_sp = self.pack(level, -2)
         ext = torch.stack([
@@ -597,6 +626,47 @@ class CkksEngine:
         return _mod_down_shoup(d, pack_sp, self.pack(level, -1),
                                self.PiWs[level], self.bp_sp[level][0],
                                self.num_special)
+
+    def _mxu_switch_tables(self, level: int):
+        """Per-level scalars of the fused switch: the extension terms
+        [P, max(A-1, 1), 3, C_sp] ((w, wp, cadj) per part, term and
+        channel, zero past a part's alpha-1 terms), the first term's offset
+        correction [C_sp] and the mod-down steps [n_sp, 2, C_sp]."""
+        if level not in self._mxu_switch_cache:
+            parts = self.ntt.parts(level)
+            C_sp = self.ntt.num_channels(level, -2)
+            nterms = max(max(p.alpha for p in parts) - 1, 1)
+            terms = torch.zeros((len(parts), nterms, 3, C_sp),
+                                dtype=torch.int64, device=self.device)
+            for pi, p in enumerate(parts):
+                for i, sh in enumerate(p.L_enter_sh):
+                    terms[pi, i] = torch.stack(
+                        [t[level:level + C_sp] for t in sh])
+            piw = torch.stack([torch.stack(wp) for wp in self.PiWs[level]])
+            self._mxu_switch_cache[level] = (terms, self.bp_sp[level][1],
+                                             piw)
+        return self._mxu_switch_cache[level]
+
+    def _switch_mxu(self, a, ksk: DataStruct, level: int):
+        """_switch in the tensor-core domain: the raw divided-difference
+        state of each part, zero-padded to A rows and stacked [P, A, N],
+        goes through the fused switch kernels (extension, transform, key
+        products, inverse, mod-down), which leave the ordinary rows fully
+        mod-downed."""
+        parts = self.ntt.parts(level)
+        A = max(p.alpha for p in parts)
+        zero = torch.zeros_like(a[0:1])
+        st = torch.stack([
+            torch.cat(s + [zero] * (A - len(s)))
+            for s in (_pre_extend(a, p.local_start, p.alpha, p)
+                      for p in parts)])
+        terms, off0, piw = self._mxu_switch_tables(level)
+        k0, k1 = self._ksk_stacked(ksk)
+        d = cuda_mxu.dispatch_switch(st, terms, off0, piw, k0, k1,
+                                     self.pack(level, -2).mxu, level,
+                                     parts[0].part_id, self.num_special)
+        C = self.ntt.num_channels(level, -1)
+        return d[0, :C], d[1, :C]
 
     # -- rescale / mult ----------------------------------------------------------
 

@@ -1,0 +1,422 @@
+"""The tensor-core ("MXU") kernels: CUDA wrappers, their plain PyTorch twins
+and their launch counters.
+
+Three kernels (sources in ``liberate_tpu_torch/csrc``):
+
+- ``mxu_ntt_fwd``: forward negacyclic NTT of one width group, natural
+  order, as two int8 matrix-product stages; ``enter`` folds the Montgomery
+  entry into stage 1 (replaces ``mxu_pallas._ntt_kernel``);
+- ``mxu_ntt_inv``: the inverse with N^-1 folded into stage 2; ``exitx``
+  also folds the Montgomery exit, ``post_reduce`` reduces to [0, q)
+  (replaces ``mxu_pallas._intt_kernel``);
+- ``mxu_switch``: the fused key switch of one width group from the raw
+  divided-difference state (extension, transform, Shoup key products
+  summed over the parts, inverse, reduce) with the special-prime
+  mod-down folded in, in mode ``special`` or ``ordinary`` (replaces
+  ``mxu_pallas._make_md_kernel``).
+
+``dispatch`` and ``dispatch_switch`` run a level's width groups, as
+``mxu_pallas.dispatch`` and ``dispatch_ksk_from_state`` do.
+
+A wrapper launches its kernel for a CUDA tensor and runs its plain twin
+only for a CPU tensor; it raises for anything else. Each twin repeats the
+kernel's arithmetic step for step on int64 tensors and forms the digit
+products in float64 (exact: every partial sum is below 2^28), so both
+give the same words. Every launch adds one to ``launches[name]``.
+"""
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import _build
+from . import u64
+from .cuda_ntt import _device_kind, _raise_on
+from .mxu_ntt import MxuPlan
+
+launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_switch": 0}
+
+# (dA, dB) pairs with compiled kernels (30-, 40- and 60-bit primes).
+DIGITS = (4, 6, 8)
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+class MxuGroup(NamedTuple):
+    """One width group of a channel layout: data channels [lo, hi) of the
+    layout, with the group plan cut to them (views)."""
+    lo: int
+    hi: int
+    plan: MxuPlan
+
+
+# -- plain twins ------------------------------------------------------------------
+
+
+def _csub(v, m):
+    """v - m where v >= m (unsigned compare)."""
+    return torch.where(u64.lt_unsigned(v, m), v, v - m)
+
+
+def _cols(plan, *names):
+    return tuple(getattr(plan, n)[:, None, None] for n in names)
+
+
+def _matmul(table, rs, x, dB):
+    """E = table [C, dA*O, dB*K] x offset digits of x [B, C, K, J], plus the
+    row-sum corrections: int64 [B, C, dA*O, J] (the kernels' int32 sums)."""
+    d = torch.cat([((x >> (8 * v)) & 0xFF) - 128 for v in range(dB)], dim=-2)
+    E = torch.matmul(table.to(torch.float64), d.to(torch.float64))
+    return E.to(torch.int64) + rs.to(torch.int64)[:, :, None]
+
+
+def _recombine(E, plan):
+    """Planes E [B, C, dA*O, J] -> V mod q in [0, 2q): Horner over the
+    planes, Barrett of the low part and Shoup of the high part (each offset
+    by 2^63), the correction, two conditional subtracts."""
+    planes = E.unflatten(-2, (plan.dA, -1))
+
+    def horner(lo, hi):
+        v = planes[..., hi - 1, :, :]
+        for u in range(hi - 2, lo - 1, -1):
+            v = v * 256 + planes[..., u, :, :]
+        return v
+
+    q, bp, whi, wphi, corr = _cols(plan, "q", "bp", "whi", "wphi", "corr")
+    split = min(plan.split, plan.dA)
+    r = u64.barrett_2q(horner(0, split) ^ u64.INT64_MIN, bp, q)
+    if plan.dA > split:
+        r = r + u64.shoup_mul(horner(split, plan.dA) ^ u64.INT64_MIN, whi,
+                              wphi, q)
+    r = _csub(r + corr, 4 * q)
+    return _csub(r, 2 * q)
+
+
+def _twiddle(x, tw, plan):
+    """Montgomery product with the twiddle plane tw [C, S, R]."""
+    q, k = _cols(plan, "q", "k")
+    return u64.montmul(x, tw, q & u64.LB_MASK, q >> u64.HALF_NBITS,
+                       k & u64.LB_MASK, k >> u64.HALF_NBITS)
+
+
+def mxu_ntt_fwd_plain(x, plan, enter=False):
+    """Forward transform of x [B, C, N] (words below 2^{8 dB}): natural
+    order, [0, 2q)."""
+    B, C, N = x.shape
+    S, R = plan.S, plan.R
+    t1, r1 = (plan.m1e, plan.m1e_rs) if enter else (plan.m1, plan.m1_rs)
+    b = _recombine(_matmul(t1, r1, x.reshape(B, C, S, R), plan.dB), plan)
+    b = _twiddle(b, plan.tw, plan)                      # [B, C, S(k2), R(r)]
+    X = _recombine(_matmul(plan.m2, plan.m2_rs, b.transpose(-1, -2),
+                           plan.dB), plan)              # [B, C, R(k1), S(k2)]
+    return X.reshape(B, C, N)
+
+
+def mxu_ntt_inv_plain(x, plan, exitx=False, post_reduce=False):
+    """Inverse transform of x [B, C, N] (natural-order NTT domain)."""
+    B, C, N = x.shape
+    S, R = plan.S, plan.R
+    y = _recombine(_matmul(plan.i1, plan.i1_rs, x.reshape(B, C, R, S),
+                           plan.dB), plan)              # [B, C, R(j), S(k2)]
+    y = _twiddle(y.transpose(-1, -2), plan.itw, plan)   # [B, C, S(k2), R(j)]
+    t2, r2 = (plan.i2x, plan.i2x_rs) if exitx else (plan.i2, plan.i2_rs)
+    out = _recombine(_matmul(t2, r2, y, plan.dB), plan)  # [B, C, S(s), R(j)]
+    if post_reduce:
+        out = _csub(out, _cols(plan, "q")[0])
+    return out.reshape(B, C, N)
+
+
+def _fold_plain(r, piw, plan, special, n_sp, srcs):
+    """The mod-down fold on the group's reduced rows r [2, C, N]."""
+    C, N = r.shape[1], r.shape[2]
+    q = plan.q[:, None]
+    bp = plan.bp[:, None]
+
+    def md_iter(v, src, j, sl):
+        tile = u64.barrett_2q(src, bp[sl], q[sl])
+        return u64.shoup_mul(v + 2 * q[sl] - tile, piw[j, 0, sl, None],
+                             piw[j, 1, sl, None], q[sl])
+
+    out = r.clone()
+    if special:
+        rows = []
+        for kk in range(n_sp):
+            sl = slice(C - 1 - kk, C - kk)
+            v = r[:, sl]
+            for j in range(kk):
+                v = _csub(md_iter(v, rows[j], j, sl), q[sl])
+            rows.append(v)
+        srcs = torch.cat(rows, dim=1).reshape(2 * n_sp, N)
+        nord = C - n_sp
+    else:
+        rows = list(srcs.reshape(2, n_sp, 1, N).unbind(1))
+        nord = C
+    sl = slice(0, nord)
+    v = r[:, sl]
+    for j in range(n_sp):
+        v = md_iter(v, rows[j], j, sl)
+    out[:, sl] = _csub(v, q[sl])
+    return (out, srcs) if special else out
+
+
+def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
+                     n_sp, special, srcs=None):
+    """The fused switch of one width group (see ``mxu_switch``)."""
+    P, A, N = st.shape
+    q = plan.q[:, None]
+    q2 = 2 * q
+    s = st ^ u64.INT64_MIN
+    acc = _csub(u64.barrett_2q(s[:, 0:1], plan.bp[:, None], q)
+                + off0[:, None], q2)                    # [P, C, N]
+    for i in range(1, A):
+        w, wp, cadj = (terms[:, i - 1, f, :, None] for f in range(3))
+        e = _csub(u64.shoup_mul(s[:, i:i + 1], w, wp, q) + cadj, q2)
+        acc = _csub(acc + e, q2)
+    x = mxu_ntt_fwd_plain(acc, plan)
+    C = x.shape[1]
+
+    def key(t):
+        return t[part_off:part_off + P, key_ch:key_ch + C]
+
+    p0 = u64.shoup_mul(x, key(k0[0]), key(k0[1]), q)
+    p1 = u64.shoup_mul(x, key(k1[0]), key(k1[1]), q)
+    a0, a1 = p0[0], p1[0]
+    for p in range(1, P):
+        a0 = _csub(a0 + p0[p], q2)
+        a1 = _csub(a1 + p1[p], q2)
+    r = mxu_ntt_inv_plain(torch.stack([a0, a1]), plan, post_reduce=True)
+    return _fold_plain(r, piw, plan, special, n_sp, srcs)
+
+
+# -- CUDA launches -----------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_L = ctypes.c_longlong
+_I = ctypes.c_int
+_ARGTYPES = {
+    "ltt_mxu_ntt": [_I, _I, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I]
+    + [_P] * 11 + [_I, _P],
+    "ltt_mxu_switch": [_I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                       _L, _I, _I] + [_P] * 16 + [_P],
+}
+
+
+def _fn(lib_name, fn_name):
+    fn = getattr(_build.load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[fn_name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _logN(plan):
+    return (plan.S * plan.R).bit_length() - 1
+
+
+def _check_plan(plan, device):
+    if plan.dA != plan.dB or plan.dA not in DIGITS:
+        raise ValueError(f"no MXU kernel for digits ({plan.dA}, {plan.dB}); "
+                         f"built: {DIGITS}")
+    for name, t in plan.tensors().items():
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"MXU table {name} must be contiguous on "
+                             f"{device}")
+
+
+def _check_words(*ts):
+    for t in ts:
+        if t.dtype != torch.int64 or t.stride(-1) != 1:
+            raise ValueError("expected int64 words with a contiguous "
+                             "coefficient axis")
+
+
+def _batched(x, plan, out):
+    """x [..., C, N] as [B, C, N] (a view), and the output [B, C, N]."""
+    C, N = plan.num_channels, plan.S * plan.R
+    if x.shape[-2:] != (C, N):
+        raise ValueError(f"expected [..., {C}, {N}] words, got "
+                         f"{tuple(x.shape)}")
+    xb = x.reshape(-1, C, N)
+    if out is None:
+        out = torch.empty(xb.shape, dtype=torch.int64, device=x.device)
+    elif out.shape != xb.shape:
+        raise ValueError(f"out must be {tuple(xb.shape)}")
+    return xb, out
+
+
+def _transform(name, inverse, x, plan, tables, post_reduce, twin, out):
+    xb, out = _batched(x, plan, out)
+    if _device_kind(x) == "cpu":
+        out.copy_(twin(xb))
+        return out
+    _check_plan(plan, x.device)
+    _check_words(xb, out)
+    B, C, N = xb.shape
+    scratch = torch.empty((B, C, N), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _fn("mxu_ntt", "ltt_mxu_ntt")(
+            int(inverse), plan.dA, xb.data_ptr(), xb.stride(0), xb.stride(1),
+            out.data_ptr(), out.stride(0), out.stride(1), scratch.data_ptr(),
+            B, C, _logN(plan), *(t.data_ptr() for t in tables),
+            *(getattr(plan, f).data_ptr() for f in
+              ("q", "k", "bp", "whi", "wphi", "corr")),
+            int(post_reduce), stream)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+def mxu_ntt_fwd(x, plan, enter=False, out=None):
+    """Forward transform of x [..., C, N] (CUDA kernel, or the twin on the
+    CPU), into ``out`` [B, C, N] when given."""
+    t1, r1 = (plan.m1e, plan.m1e_rs) if enter else (plan.m1, plan.m1_rs)
+    res = _transform("mxu_ntt_fwd", False, x, plan,
+                     (t1, r1, plan.tw, plan.m2, plan.m2_rs), False,
+                     lambda xb: mxu_ntt_fwd_plain(xb, plan, enter), out)
+    return res.reshape(x.shape) if out is None else res
+
+
+def mxu_ntt_inv(x, plan, exitx=False, post_reduce=False, out=None):
+    """Inverse transform of x [..., C, N], optionally with the Montgomery
+    exit and the reduce to [0, q)."""
+    t2, r2 = (plan.i2x, plan.i2x_rs) if exitx else (plan.i2, plan.i2_rs)
+    res = _transform("mxu_ntt_inv", True, x, plan,
+                     (plan.i1, plan.i1_rs, plan.itw, t2, r2), post_reduce,
+                     lambda xb: mxu_ntt_inv_plain(xb, plan, exitx,
+                                                  post_reduce), out)
+    return res.reshape(x.shape) if out is None else res
+
+
+def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
+               special, srcs=None, out=None):
+    """The fused key switch of one width group with the mod-down folded in.
+
+    st: [P, A, N] raw divided-difference state rows of the parts
+    (zero-padded to A rows); terms: [P, max(A-1, 1), 3, C] the (w, wp,
+    cadj) extension scalars per part, term and channel (zero for padded
+    terms); off0: [C] the offset correction 2q - (2^63 mod q) of the first
+    term; piw: [n_sp, 2, C] (P_j^-1, quotient) per removal step; k0, k1:
+    Shoup-form key halves, each a (value, quotient) pair of [P_full, C0, N]
+    stacks, read at parts part_off.. and key channels key_ch... ``special``:
+    this group holds the special primes as its last n_sp channels; it
+    returns (out, srcs), the exported dropped rows srcs [2 n_sp, N].
+    Otherwise ``srcs`` is consumed and out returned. out: [2, C, N]; the
+    ordinary rows fully mod-downed in [0, q), the special rows reduced."""
+    P, A, N = st.shape
+    C = plan.num_channels
+    if special and C < n_sp:
+        raise ValueError(f"the special group holds {C} channels, fewer "
+                         f"than the {n_sp} special primes")
+    if not special and (srcs is None or srcs.shape != (2 * n_sp, N)
+                        or not srcs.is_contiguous()):
+        raise ValueError(f"mode 'ordinary' needs the special group's "
+                         f"[{2 * n_sp}, {N}] rows")
+    if terms.shape[:3] != (P, max(A - 1, 1), 3) or terms.shape[3] != C \
+            or off0.shape != (C,) or piw.shape != (n_sp, 2, C) \
+            or N != plan.S * plan.R:
+        raise ValueError("mxu_switch: tables do not match the state and plan")
+    keys = (*k0, *k1)
+    for t in keys:
+        if t.shape != keys[0].shape or t.stride() != keys[0].stride() \
+                or t.shape[0] < part_off + P or t.shape[1] < key_ch + C \
+                or t.shape[2] != N:
+            raise ValueError("mxu_switch: key stacks do not cover the parts "
+                             "and channels")
+    if out is None:
+        out = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
+    if _device_kind(st) == "cpu":
+        res = mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch,
+                               part_off, n_sp, special, srcs)
+        out.copy_(res[0] if special else res)
+        return (out, res[1]) if special else out
+    _check_plan(plan, st.device)
+    ld = terms.stride(2)
+    if not st.is_contiguous() or terms.stride() != (
+            terms.shape[1] * 3 * ld, 3 * ld, ld, 1) \
+            or piw.stride() != (2 * ld, ld, 1) or off0.stride() != (1,) \
+            or out.stride(1) != N:
+        raise ValueError("mxu_switch: state, scalar tables and output must "
+                         "be dense (channel slices of one layout)")
+    _check_words(st, terms, off0, piw, out, *keys)
+    srcs_out = torch.empty((2 * n_sp, N), dtype=torch.int64,
+                           device=st.device) if special else None
+    kv = [t[part_off:, key_ch:] for t in keys]
+    ext = torch.empty((P, C, N), dtype=torch.int64, device=st.device)
+    inter1 = torch.empty_like(ext)
+    acc = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
+    inter2 = torch.empty_like(acc)
+    with torch.cuda.device(st.device):
+        stream = torch.cuda.current_stream(st.device).cuda_stream
+        rc = _fn("mxu_switch", "ltt_mxu_switch")(
+            plan.dA, int(special), n_sp, st.data_ptr(), P, A,
+            terms.data_ptr(), terms.shape[1], ld, off0.data_ptr(),
+            piw.data_ptr(), *(t.data_ptr() for t in kv), kv[0].stride(0),
+            kv[0].stride(1), None if special else srcs.data_ptr(),
+            srcs_out.data_ptr() if special else None, ext.data_ptr(),
+            inter1.data_ptr(),
+            acc.data_ptr(), inter2.data_ptr(), out.data_ptr(), out.stride(0),
+            C, _logN(plan),
+            *(getattr(plan, f).data_ptr() for f in
+              ("m1", "m1_rs", "tw", "m2", "m2_rs", "i1", "i1_rs", "itw",
+               "i2", "i2_rs", "q", "k", "bp", "whi", "wphi", "corr")),
+            stream)
+    _raise_on(rc, "mxu_switch")
+    launches["mxu_switch"] += 1
+    return (out, srcs_out) if special else out
+
+
+# -- width-group dispatch ------------------------------------------------------------
+
+
+def dispatch(a, groups, inverse=False, plain=False, **kw):
+    """Transform a [..., C, N] through a layout's width groups, one kernel
+    per group, each writing its channel block of one output. ``kw``: enter
+    (forward); exitx, post_reduce (inverse). ``plain``: run the twins
+    whatever the device (to hold the kernels against them)."""
+    C, N = groups[-1].hi, a.shape[-1]
+    xb = a.reshape(-1, C, N)
+    out = torch.empty(xb.shape, dtype=torch.int64, device=a.device)
+    for g in groups:
+        if plain:
+            twin = mxu_ntt_inv_plain if inverse else mxu_ntt_fwd_plain
+            out[:, g.lo:g.hi] = twin(xb[:, g.lo:g.hi], g.plan, **kw)
+        else:
+            f = mxu_ntt_inv if inverse else mxu_ntt_fwd
+            f(xb[:, g.lo:g.hi], g.plan, out=out[:, g.lo:g.hi], **kw)
+    return out.reshape(a.shape)
+
+
+def dispatch_switch(st, terms, off0, piw, k0, k1, groups, level, part_off,
+                    n_sp, plain=False):
+    """The fused switch of a level's with-special layout: the group holding
+    the special primes (the last channels) runs first and exports its
+    dropped rows; the other groups consume them. Returns [2, C_sp, N]: the
+    ordinary rows fully mod-downed, the special rows raw (slice them off).
+    ``level`` is the layout's first global channel, the key stacks'
+    channel of data channel 0. ``plain``: run the twins."""
+    sp = max(groups, key=lambda g: g.hi)
+    if sp.hi - sp.lo < n_sp:
+        raise ValueError(f"the special width group [{sp.lo}, {sp.hi}) does "
+                         f"not hold the {n_sp} special primes")
+    out = torch.empty((2, sp.hi, st.shape[-1]), dtype=torch.int64,
+                      device=st.device)
+    srcs = None
+    for g in [sp] + [g for g in groups if g is not sp]:
+        special = g is sp
+        args = (st, terms[..., g.lo:g.hi], off0[g.lo:g.hi],
+                piw[..., g.lo:g.hi], k0, k1, g.plan, level + g.lo, part_off,
+                n_sp, special)
+        if plain:
+            res = mxu_switch_plain(*args, srcs=srcs)
+            out[:, g.lo:g.hi] = res[0] if special else res
+        else:
+            res = mxu_switch(*args, srcs=srcs, out=out[:, g.lo:g.hi])
+        if special:
+            srcs = res[1]
+    return out

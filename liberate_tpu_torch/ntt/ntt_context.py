@@ -5,6 +5,12 @@ is a contiguous channel slice of them (views, no copies), built lazily per
 (level, mult_type), and a ``PartPlan`` holds one gadget part's tables for
 the hybrid key switch.
 
+A context serves one NTT domain throughout: the butterfly kernels'
+bit-reversed domain (a pack's ``plan``), or, with ``use_mxu``, the
+tensor-core kernels' natural-order domain (a pack's ``mxu``: the width
+groups that meet its channel range, each with the group tables cut to its
+channels).
+
 Channel layout: the global prime order is q = [scales..., base,
 specials...]. At level l the alive channels are the contiguous suffix
 q[l:]; mult_type -1 excludes the trailing special primes, -2 includes them.
@@ -14,7 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import u64
+from . import mxu_ntt, u64
+from .cuda_mxu import MxuGroup
 from .cuda_ntt import NttPlan, make_plan
 from .rns_partition import RnsPartition
 
@@ -32,7 +39,8 @@ class LevelPack(NamedTuple):
     kh: torch.Tensor
     Rs: torch.Tensor
     Rs_scale: torch.Tensor
-    plan: Optional[NttPlan] = None   # kernel tables; None for pointwise use
+    plan: Optional[NttPlan] = None   # butterfly kernel tables
+    mxu: Optional[tuple] = None      # MxuGroups of the tensor-core kernels
 
     def mont(self):
         """(ql, qh, kl, kh) as [C, 1] columns for montmul on [..., C, N]."""
@@ -60,9 +68,10 @@ class PartPlan(NamedTuple):
 
 
 class NttContext:
-    def __init__(self, ctx, device):
+    def __init__(self, ctx, device, use_mxu=False):
         self.ctx = ctx
         self.device = torch.device(device)
+        self.use_mxu = use_mxu
         self.num_ordinary_primes = ctx.num_scales + 1
         self.num_special_primes = ctx.num_special_primes
         self.num_levels = ctx.num_scales + 1
@@ -71,6 +80,10 @@ class NttContext:
         self.p = RnsPartition(self.num_ordinary_primes,
                               self.num_special_primes, 1)
         self._build_master_tables()
+        # Width-group plans ((start, stop, MxuPlan), ...) over global
+        # channels, in the tensor-core domain only.
+        self.mxu_groups = (mxu_ntt.group_plans(ctx, self.device)
+                           if use_mxu else None)
         self._level_packs = {}
         self._part_plans = {}
 
@@ -91,8 +104,8 @@ class NttContext:
             Rs=self._tensor(ctx.R_square),
             Rs_scale=self._tensor([(Rs * scale) % q
                                    for Rs, q in zip(ctx.R_square, ctx.q)]),
-            plan=make_plan(ctx.logN, ctx.q, ctx.k, ctx.psi, ctx.psi_inv,
-                           self.device),
+            plan=None if self.use_mxu else make_plan(
+                ctx.logN, ctx.q, ctx.k, ctx.psi, ctx.psi_inv, self.device),
         )
 
     # -- channel ranges ----------------------------------------------------------
@@ -114,11 +127,20 @@ class NttContext:
     # -- packs ----------------------------------------------------------------------
 
     def make_pack(self, start: int, stop: int, with_plan=True) -> LevelPack:
-        """The pack of channels [start, stop) of the global order."""
+        """The pack of channels [start, stop) of the global order, with the
+        transform tables of the context's domain when ``with_plan``."""
         m = self._master
-        return LevelPack(
-            *(t[start:stop] for t in m[:-1]),
-            plan=m.plan.slice(start, stop) if with_plan else None)
+        plan = mxu = None
+        if with_plan and self.use_mxu:
+            mxu = tuple(
+                MxuGroup(max(gs, start) - start, min(ge, stop) - start,
+                         p.slice(max(gs, start) - gs, min(ge, stop) - gs))
+                for gs, ge, p in self.mxu_groups
+                if min(ge, stop) > max(gs, start))
+        elif with_plan:
+            plan = m.plan.slice(start, stop)
+        return LevelPack(*(t[start:stop] for t in m[:-2]), plan=plan,
+                         mxu=mxu)
 
     def level_pack(self, level: int = 0, mult_type: int = -1) -> LevelPack:
         key = (level, mult_type)

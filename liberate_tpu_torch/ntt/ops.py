@@ -2,10 +2,11 @@
 
 Pointwise ops take the per-channel constants of a ``LevelPack`` and
 broadcast them over the channel axis (-2). The transforms dispatch to the
-kernel wrappers of ``cuda_ntt``: the CUDA kernel for a CUDA tensor, its
-plain twin for a CPU tensor. They use Shoup-form (plain) twiddles, so they
-return the same values mod q as the Montgomery-twiddle chains, with other
-[0, 2q) representatives.
+kernel wrappers of ``cuda_ntt`` (butterfly) or ``cuda_mxu`` (tensor-core):
+the CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. The
+butterfly kernels use Shoup-form (plain) twiddles, so they return the same
+values mod q as the Montgomery-twiddle chains, with other [0, 2q)
+representatives.
 
 Every compare keeps the signedness the reference uses: ``reduce_2q``,
 ``make_signed``, ``canon_2q`` and the conditional subtracts compare signed.
@@ -13,7 +14,7 @@ Every compare keeps the signedness the reference uses: ``reduce_2q``,
 
 import torch
 
-from . import cuda_ntt, u64
+from . import cuda_mxu, cuda_ntt, u64
 
 __all__ = [
     "mont_mult", "mont_enter", "mont_enter_scalar", "mont_redc", "mont_add",
@@ -99,34 +100,59 @@ def fit_channels(d, W):
 
 
 # -- transforms -------------------------------------------------------------------
+#
+# A pack carries the tables of one domain: ``plan`` for the butterfly
+# kernels (bit-reversed NTT domain) or ``mxu`` for the tensor-core kernels
+# (natural order), as the JAX package's ops route by pack.pallas /
+# pack.mxu. The domains never mix: a pack without tables raises.
+
+
+def _plan(pack):
+    if pack.plan is None:
+        raise ValueError("this pack carries no transform tables")
+    return pack.plan
 
 
 def ntt(a, pack):
-    """Forward negacyclic NTT: natural-order input, bit-reversed output,
-    preserving the Montgomery domain."""
-    return cuda_ntt.ntt_fwd(a, pack.plan)
+    """Forward negacyclic NTT (butterfly: natural-order input, bit-reversed
+    output; tensor-core: natural order), preserving the Montgomery
+    domain."""
+    if pack.mxu is not None:
+        return cuda_mxu.dispatch(a, pack.mxu)
+    return cuda_ntt.ntt_fwd(a, _plan(pack))
 
 
 def enter_ntt(a, pack):
     """Montgomery enter (x R) fused with the forward NTT."""
-    return cuda_ntt.ntt_fwd(a, pack.plan, pre_enter=True)
+    if pack.mxu is not None:
+        return cuda_mxu.dispatch(a, pack.mxu, enter=True)
+    return cuda_ntt.ntt_fwd(a, _plan(pack), pre_enter=True)
 
 
 def intt(a, pack):
     """Inverse NTT with the N^-1 normalisation."""
-    return cuda_ntt.ntt_inv(a, pack.plan)
+    if pack.mxu is not None:
+        return cuda_mxu.dispatch(a, pack.mxu, inverse=True)
+    return cuda_ntt.ntt_inv(a, _plan(pack))
 
 
 def intt_exit(a, pack):
     """Inverse NTT fused with the Montgomery exit (x R^-1)."""
-    return cuda_ntt.ntt_inv(a, pack.plan, post_exit=True)
+    if pack.mxu is not None:
+        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=True)
+    return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=True)
 
 
 def intt_exit_reduce(a, pack):
-    return cuda_ntt.ntt_inv(a, pack.plan, post_exit=True, post_reduce=True)
+    if pack.mxu is not None:
+        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=True,
+                                 post_reduce=True)
+    return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=True, post_reduce=True)
 
 
 def intt_reduce(a, pack):
     """Inverse NTT + N^-1 + reduce to [0, q), with NO Montgomery exit (the
     Shoup-form key switch: its products are already plain)."""
-    return cuda_ntt.ntt_inv(a, pack.plan, post_reduce=True)
+    if pack.mxu is not None:
+        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, post_reduce=True)
+    return cuda_ntt.ntt_inv(a, _plan(pack), post_reduce=True)

@@ -1,0 +1,184 @@
+"""The port's tensor-core ("MXU") NTT domain against the JAX package, on the
+CPU, at logN 8 with 40-bit scale primes (3 scales, 2 special primes): the
+same two width groups as silver, (6, 6) digits with a high recombination
+part for the scale primes and (8, 8) for the base and special primes.
+
+- the port's tables equal the JAX package's ``mxu_ntt.make_plan``;
+- the twins of the forward (``enter``) and inverse (``exitx``) kernels are
+  bit-exact with ``mxu_pallas`` in interpret mode, over all 6 channels;
+- the slice: keys and a ciphertext made by the port's MXU engine, carried
+  to a JAX engine on its MXU kernel path (interpret mode), which runs only
+  ``mult`` (the B=4 ``enter`` transform, the B=3 ``exitx`` + reduce
+  inverse, and the fused switch in both modes): its output is bit-identical
+  to the port's ``mult``.
+
+The JAX engine never runs keygen or encryption here: in interpret mode they
+cost tens of seconds.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import liberate_tpu
+import liberate_tpu_torch
+from liberate_tpu import config
+from liberate_tpu.fhe.context.ckks_context import CkksContext, \
+    primitive_root_2N
+from liberate_tpu.fhe.data_struct import DataStruct as JaxDataStruct
+from liberate_tpu.ntt import mxu_ntt, mxu_pallas, u64
+from liberate_tpu.ntt.ntt_context import NttContext
+from liberate_tpu_torch import interop
+from liberate_tpu_torch.ntt import cuda_mxu, ops
+
+PARAMS = dict(logN=8, scale_bits=40, num_scales=3, num_special_primes=2,
+              is_secured=False)
+SEED = 20260816
+TOL = 1e-4
+
+_FLAGS = ("use_mxu_ntt", "use_mxu_pallas", "use_pallas", "pallas_interpret")
+
+
+class _MxuKernelPath:
+    """The JAX package's accelerator path (MXU domain, Pallas MXU kernels)
+    in interpret mode; restores the flags on exit."""
+
+    def __enter__(self):
+        self.saved = {f: getattr(config, f) for f in _FLAGS}
+        for f in _FLAGS:
+            setattr(config, f, True)
+
+    def __exit__(self, *exc):
+        for f, v in self.saved.items():
+            setattr(config, f, v)
+
+
+@pytest.fixture(scope="module")
+def port():
+    te = liberate_tpu_torch.CkksEngine(device="cpu", use_mxu_ntt=True,
+                                       seed=SEED, **PARAMS)
+    sk = te.create_secret_key()
+    pk = te.create_public_key(sk)
+    evk = te.create_evk(sk)
+    rng = np.random.default_rng(5)
+    m = rng.uniform(-1, 1, te.num_slots) + 1j * rng.uniform(
+        -1, 1, te.num_slots)
+    ct = te.encorypt(m, pk)
+    return dict(te=te, sk=sk, evk=evk, m=m, ct=ct,
+                mult=te.mult(ct, ct, evk))
+
+
+@pytest.fixture(scope="module")
+def jax_ctx():
+    ctx = CkksContext(**PARAMS)
+    with _MxuKernelPath():
+        pack = NttContext(ctx).level_pack(0, -2)
+    assert len(pack.mxu.groups) == 2
+    return ctx, pack
+
+
+def _words(packed):
+    return u64.to_int64_np(np.asarray(packed))
+
+
+def _lazy(q, B, N, seed):
+    """Words below 2q, as the path feeds the transforms."""
+    rng = np.random.default_rng(seed)
+    q = np.array(q, dtype=np.int64)[:, None]
+    return (rng.integers(0, 1 << 62, size=(B, q.shape[0], N))
+            % (2 * q)).astype(np.int64)
+
+
+@pytest.mark.parametrize("group", [0, 1])
+def test_tables_equal_jax_make_plan(port, group):
+    ctx = port["te"].ctx
+    lo, hi, plan = port["te"].ntt.mxu_groups[group]
+    dA, dB = (6, 6) if group == 0 else (8, 8)
+    assert (plan.dA, plan.dB) == (dA, dB)
+    qs = ctx.q[lo:hi]
+    psis = [primitive_root_2N(q, ctx.N) for q in qs]
+    want = mxu_ntt.make_plan(
+        ctx.logN, qs, [ctx.R % q for q in qs], psis,
+        [pow(p, -1, q) for p, q in zip(psis, qs)],
+        [pow(ctx.N, -1, q) for q in qs], word_bits=ctx.buffer_bit_length,
+        dA=dA, dB=dB)
+    C = hi - lo
+    assert (want["S"], want["R"], want["split"]) == (plan.S, plan.R,
+                                                     plan.split)
+    for name in ("m1", "m1e", "m2", "i1", "i2", "i2x"):
+        w = np.asarray(want[name])
+        assert np.array_equal(getattr(plan, name).numpy(),
+                              w.reshape(C, -1, w.shape[-1])), name
+        assert np.array_equal(getattr(plan, name + "_rs").numpy(),
+                              np.asarray(want[name + "_rs"]).reshape(C, -1))
+    for name in ("tw", "itw", "bp", "whi", "wphi", "corr"):
+        assert np.array_equal(getattr(plan, name).numpy(),
+                              _words(want[name])), name
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd_enter",
+                                                        "inv_exitx"])
+def test_transform_twins_match_pallas(port, jax_ctx, inverse):
+    """#5 with ``enter`` (keygen, encrypt) and #6 with ``exitx`` (encrypt,
+    decrypt), B=2 over all 6 channels, both width groups."""
+    ctx, pack = jax_ctx
+    a = _lazy(ctx.q, 2, ctx.N, seed=11 + inverse)
+    kw = dict(exitx=True) if inverse else dict(enter=True)
+    with _MxuKernelPath():
+        want = _words(mxu_pallas.dispatch(
+            jnp.asarray(u64.from_int64_np(a)), pack.mxu, inverse=inverse,
+            interpret=True, **kw))
+    tpack = port["te"].pack(0, -2)
+    got = cuda_mxu.dispatch(torch.from_numpy(a), tpack.mxu, inverse=inverse,
+                            **kw)
+    assert np.array_equal(got.numpy(), want)
+
+
+def _to_jax(ds):
+    def build(tree, meta):
+        def conv(x):
+            if isinstance(x, tuple) and len(x) == 2 \
+                    and isinstance(x[1], dict):
+                return build(*x)
+            if isinstance(x, (tuple, list)):
+                return type(x)(conv(t) for t in x)
+            return jnp.asarray(x)
+        return JaxDataStruct(conv(tree), **meta)
+    return build(*interop.to_reference_arrays(ds))
+
+
+def test_mult_bit_identical_to_jax_mxu_kernels(port):
+    """The slice: the JAX engine on its MXU kernel path multiplies the
+    port's ciphertext with the port's evk; the words equal the port's."""
+    with _MxuKernelPath():
+        je = liberate_tpu.CkksEngine(seed=SEED, **PARAMS)
+        assert je._mxu_fused_switch()
+        ct = _to_jax(port["ct"])
+        out = je.mult(ct, ct, _to_jax(port["evk"]))
+    assert out.level == port["mult"].level == 1
+    for j, t in zip(out.data, port["mult"].data):
+        assert np.array_equal(_words(j), t.numpy())
+
+
+def test_mult_decrode_error(port):
+    te = port["te"]
+    err = abs(te.absmax_error(te.decrode(port["mult"], port["sk"]),
+                              port["m"] * port["m"]))
+    assert err < TOL
+
+
+def test_mxu_packs_carry_no_butterfly_tables(port):
+    """An MXU engine's packs carry no butterfly tables, so the butterfly
+    kernels cannot be reached from it, and a pack without tables raises;
+    on the CPU the tensor-core wrappers run their twins and count no
+    launch."""
+    te = port["te"]
+    for level, mult_type in ((0, -2), (1, -1)):
+        pack = te.pack(level, mult_type)
+        assert pack.plan is None and pack.mxu is not None
+    cuda_mxu.reset_launches()
+    te.mult(port["ct"], port["ct"], port["evk"])
+    assert cuda_mxu.launches == dict.fromkeys(cuda_mxu.launches, 0)
+    with pytest.raises(ValueError, match="no transform tables"):
+        ops.ntt(port["ct"].data[0], te.ntt.make_pack(0, 1, with_plan=False))
