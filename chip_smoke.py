@@ -10,18 +10,25 @@
 3. Times the tensor-core (MXU) table build at silver, without and with
    the disk cache.
 4. Holds every kernel against its plain PyTorch twin on the same CUDA
-   inputs at the silver shapes of the multiply, bit for bit, and times
-   both with CUDA events beside the kernel's bound: the butterfly kernels
-   (``ntt_fwd``, ``ntt_inv``, ``ksk_mulacc``) and the tensor-core kernels
-   (``mxu_ntt_fwd``, ``mxu_ntt_inv``, ``mxu_switch`` in both modes).
+   inputs, bit for bit, and times both with CUDA events beside the
+   kernel's bound, at the shapes of the multiply: at silver the butterfly
+   kernels (``ntt_fwd``, ``ntt_inv``, ``ksk_mulacc``), the tensor-core
+   transforms (``mxu_ntt_fwd``, ``mxu_ntt_inv``), the folded switch
+   (``mxu_switch``, both modes) and the Montgomery-key switch
+   (``mxu_switch_inv_mont``); at gold (logN 16) the butterfly kernels, the
+   tensor-core transforms and the Shoup-key switch without the fold
+   (``mxu_switch_inv``).
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
-   one seed, in both NTT domains: the keys and ciphertexts must be
-   identical words.
-6. Drives the silver path (keygen -> 2 x encorypt -> mult -> decrode)
-   through the public API in each domain, with the launch counters zeroed
-   just before: the multiply must have launched every kernel of its domain
-   and the engine no kernel of the other, and the decoded error must be
-   < 1e-4. Times mult (median of 7) and profiles one.
+   one seed, in both NTT domains and with the Montgomery-form key: the
+   keys and ciphertexts must be identical words.
+6. Drives five paths (keygen -> 2 x encorypt -> mult -> decrode) through
+   the public API, each with the launch counters zeroed just before: silver
+   in each domain, silver in the tensor-core domain with the
+   Montgomery-form key (``use_shoup_ksk=False``), gold in each domain. The
+   multiply must launch the kernels of its path, the path no other kernel
+   (the tensor-core switch kernel is the one ``switch_route`` names), and
+   the decoded error must be < 1e-4. Times mult (median of 7) and
+   profiles one.
 7. Prints the kernels' JSON line and, last, the result line.
 
 ``--compile-yardstick`` also times ``torch.compile`` of the
@@ -123,22 +130,24 @@ def mxu_ntt_work(groups, B, S, R):
     return by, muls, macs
 
 
-def mxu_switch_work(groups, P, A, n_sp, S, R):
-    """The same for the fused switch of one ciphertext: the state rows,
-    the Shoup key pairs of both halves for every part and channel, the
-    forward and inverse tables, the output rows and the exported rows;
-    P forward and 2 inverse transforms per channel, the extension, the key
-    products and the mod-down steps."""
+def mxu_switch_work(groups, P, A, n_sp, S, R, mont=False):
+    """The same for the switch of one ciphertext: the state rows, the key
+    of both halves for every part and channel (Shoup pairs, or ``mont``
+    single Montgomery-form words), the forward and inverse tables and the
+    output rows; P forward and 2 inverse transforms per channel, the
+    extension and the key products. With ``n_sp`` the folded mod-down's
+    steps and exported rows as well (0: the switch without the fold)."""
     N = S * R
+    key_words, key_muls = (2, MONT_MULS) if mont else (4, SHOUP_MULS)
     by = 8 * P * A * N + 2 * 8 * 2 * n_sp * N
     muls = macs = 0
     for g in groups:
         C, d = g.hi - g.lo, g.plan.dA
         tr = 2 * recombine_muls(d) + MONT_MULS
-        by += C * (4 * 8 * P * N + 2 * mxu_table_bytes(d, S, R, N)
+        by += C * (key_words * 8 * P * N + 2 * mxu_table_bytes(d, S, R, N)
                    + 2 * 8 * N)
         muls += C * N * (P * (BARRETT_MULS + (A - 1) * SHOUP_MULS + tr
-                              + 2 * SHOUP_MULS)
+                              + 2 * key_muls)
                          + 2 * (tr + n_sp * (BARRETT_MULS + SHOUP_MULS)))
         macs += C * d * d * N * (S + R) * (P + 2)
     return by, muls, macs
@@ -197,13 +206,24 @@ def reset_counters():
     cuda_mxu.reset_launches()
 
 
-def drive_silver(eng, domain, own, other, rows):
+def drive_path(eng, label, rows):
     """keygen -> 2 x encorypt -> mult -> decrode through the public API
     with the counters zeroed just before; checks the error, that mult
-    launched every kernel of the domain (``own``) and that the engine
-    launched none of ``other``; times mult and profiles one."""
+    launched every kernel of the engine's domain and switch route and that
+    the path launched no other; a kernel's row takes its launches from the
+    first path that launches it. Times mult and profiles one."""
     import numpy as np
     import torch
+
+    from liberate_tpu_torch.fhe.engine import switch_route
+    from liberate_tpu_torch.ntt import cuda_ntt
+
+    if eng.use_mxu_ntt:
+        own = ["mxu_ntt_fwd", "mxu_ntt_inv",
+               switch_route(eng.ctx.logN, eng.use_shoup_ksk)]
+    else:
+        own = list(cuda_ntt.launches)
+    other = [k for k in counters() if k not in own]
 
     reset_counters()
     t = time.perf_counter()
@@ -226,21 +246,22 @@ def drive_silver(eng, domain, own, other, rows):
     dec = eng.decrode(ctm, sk)
     path = counters()
     err = abs(eng.absmax_error(dec, m1 * m2))
-    print(f"silver {domain} path: keys {t_keys:.2f} s, mult -> level "
-          f"{ctm.level}, |err| {err:.3e}, launches {path}, in mult {during}")
+    print(f"{label} path: keys {t_keys:.2f} s, mult -> level {ctm.level}, "
+          f"|err| {err:.3e}, launches {path}, in mult {during}")
     C = eng.ntt.num_channels(ctm.level, -1)
     for c in ctm.data:
         if tuple(c.shape) != (C, eng.ctx.N) or c.device.type != "cuda":
             raise AssertionError(f"mult output shape {tuple(c.shape)}")
     if not err < 1e-4:
-        raise AssertionError(f"silver {domain} mult error {err} >= 1e-4")
+        raise AssertionError(f"{label} mult error {err} >= 1e-4")
     for k in own:
         if during[k] <= 0:
-            raise AssertionError(f"{k} was not launched by mult")
-        rows[k]["launches"] = path[k]
+            raise AssertionError(f"{k} was not launched by the {label} mult")
+        if not rows[k]["launches"]:
+            rows[k]["launches"] = path[k]
     for k in other:
         if path[k] != 0:
-            raise AssertionError(f"the {domain} engine launched {k}")
+            raise AssertionError(f"the {label} path launched {k}")
 
     times = []
     eng.mult(ct1, ct2, evk)
@@ -250,9 +271,9 @@ def drive_silver(eng, domain, own, other, rows):
         eng.mult(ct1, ct2, evk)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    print(f"silver {domain} mult: median {statistics.median(times):.3f} ms "
-          f"over {len(times)} runs (min {min(times):.3f}, max "
-          f"{max(times):.3f}); launches per mult {during}")
+    print(f"{label} mult: median {statistics.median(times):.3f} ms over "
+          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}); "
+          f"launches per mult {during}")
 
     # Where a mult's device time goes (torch.profiler; single stream, so
     # kernel times add up to the busy time).
@@ -270,11 +291,161 @@ def drive_silver(eng, domain, own, other, rows):
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
-    print(f"profile ({domain}): {wall:.3f} ms/mult wall with the profiler "
-          f"on, device busy {busy:.3f} ms/mult ({len(kern)} kernel names)")
+    torch_ops = [e for e in kern if "at::native" in e.key
+                 or e.key.startswith(("Memcpy", "Memset"))]
+    ops_ms = sum(e.self_device_time_total for e in torch_ops) / 1e3 / reps
+    print(f"profile ({label}): {wall:.3f} ms/mult wall with the profiler "
+          f"on, device busy {busy:.3f} ms/mult ({len(kern)} kernel names): "
+          f"PyTorch's own kernels {ops_ms:.3f} ms/mult in "
+          f"{sum(e.count for e in torch_ops) // reps} launches, the port's "
+          f"{busy - ops_ms:.3f} ms/mult")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/mult "
               f"x{e.count // reps} {e.key[:100]}")
+
+
+def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
+    """Every kernel of the preset's multiply against its twin at its shapes
+    at level 1. Silver: the butterfly kernels, the tensor-core transforms,
+    the folded switch and the Montgomery-key switch; gold: the butterfly
+    kernels, the tensor-core transforms and the Shoup-key switch without
+    the fold."""
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import _ksk_shoup
+    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
+
+    level = 1
+    pack = eng.pack(level, -1)
+    pack_sp = eng.pack(level, -2)
+    parts = eng.ntt.parts(level)
+    C, C_sp, P = pack.q.shape[0], pack_sp.q.shape[0], len(parts)
+    N, logN = eng.ctx.N, eng.ctx.logN
+    C0_sp = eng.ntt.total_channels
+    A = max(p.alpha for p in parts)
+    groups = [(g.lo, g.hi, g.plan.dA) for g in eng_mxu.pack(level, -2).mxu]
+    print(f"{preset} shapes at level {level}: N={N} C={C} C_sp={C_sp} P={P} "
+          f"A={A} C0_sp={C0_sp} part_off={parts[0].part_id}, width groups "
+          f"(lo, hi, digits) {groups}")
+
+    k0 = random_words(eng.pack(0, -2).q, (len(eng.ntt.parts(0)), C0_sp, N),
+                      gen, lazy=True)
+    k1 = random_words(eng.pack(0, -2).q, k0.shape, gen, lazy=True)
+    butterfly = [
+        ("ntt_fwd", f"B=4 C={C} pre_enter (_cc_mult_core)",
+         (random_words(pack.q, (4, C, N), gen), pack.plan),
+         dict(pre_enter=True)),
+        ("ntt_fwd", f"B={P} C={C_sp} (switch extension)",
+         (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True),
+          pack_sp.plan), {}),
+        ("ntt_inv", f"B=3 C={C} exit+reduce (_relin_pre)",
+         (random_words(pack.q, (3, C, N), gen, lazy=True), pack.plan),
+         dict(post_exit=True, post_reduce=True)),
+        ("ntt_inv", f"B=2 C={C_sp} reduce (intt_reduce)",
+         (random_words(pack_sp.q, (2, C_sp, N), gen, lazy=True),
+          pack_sp.plan),
+         dict(post_reduce=True)),
+        ("ksk_mulacc", f"P={P} C={C_sp} level={level}",
+         (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True), k0, k1,
+          pack_sp.plan, level, parts[0].part_id), {}),
+    ]
+    kernels = {"ntt_fwd": (cuda_ntt.ntt_fwd, cuda_ntt.ntt_fwd_plain,
+                           "liberate_tpu_torch/csrc/ntt.cu",
+                           "liberate_tpu/ntt/pallas_ntt.py:534"),
+               "ntt_inv": (cuda_ntt.ntt_inv, cuda_ntt.ntt_inv_plain,
+                           "liberate_tpu_torch/csrc/ntt.cu",
+                           "liberate_tpu/ntt/pallas_ntt.py:577"),
+               "ksk_mulacc": (cuda_ntt.ksk_mulacc, cuda_ntt.ksk_mulacc_plain,
+                              "liberate_tpu_torch/csrc/ksk_mulacc.cu",
+                              "liberate_tpu/ntt/pallas_ntt.py:693")}
+    for name, label, args, kw in butterfly:
+        fn, twin, src, replaces = kernels[name]
+        library = None
+        if name == "ksk_mulacc":
+            x = args[0]
+            words = x.numel() * 3 + 2 * C_sp * N
+            b = bound(8 * words, 2 * x.numel() * MONT_MULS)
+            if compile_yardstick:
+                def library(twin=twin, args=args):
+                    # Yardstick only, used nowhere in the port: what
+                    # torch.compile makes of the plain twin (no PyTorch
+                    # call computes a modular product of 62-bit words).
+                    t = time.perf_counter()
+                    compiled = torch.compile(twin)
+                    if not torch.equal(torch.stack(compiled(*args)),
+                                       torch.stack(twin(*args))):
+                        raise AssertionError("compiled ksk_mulacc twin "
+                                             "differs")
+                    print(f"  torch.compile of the twin: "
+                          f"{time.perf_counter() - t:.1f} s")
+                    return cuda_ms(lambda: compiled(*args), 100)[0]
+        else:
+            x = args[0]
+            B, cx = x.shape[0], x.shape[1]
+            muls = B * cx * (N // 2) * logN
+            if name == "ntt_inv" or kw.get("pre_enter"):
+                muls += B * cx * N          # the exit or entry multiply
+            b = bound(8 * (2 * x.numel() + 2 * cx * N), muls * SHOUP_MULS)
+        check_case(name, f"{preset} {label}", lambda: fn(*args, **kw),
+                   lambda: twin(*args, **kw), b, rows, src, replaces,
+                   library)
+
+    # The tensor-core kernels at the shapes of the MXU mult.
+    mpack = eng_mxu.pack(level, -1)
+    mpack_sp = eng_mxu.pack(level, -2)
+    S, R = mpack.mxu[0].plan.S, mpack.mxu[0].plan.R
+    x4 = random_words(mpack.q, (4, C, N), gen, lazy=True)
+    x3 = random_words(mpack.q, (3, C, N), gen, lazy=True)
+    st = torch.randint(0, 1 << 62, (P, A, N), generator=gen,
+                       device=x4.device, dtype=torch.int64)
+    pack0 = eng_mxu.pack(0, -2)
+    terms, off0, piw = eng_mxu._mxu_switch_tables(level)
+    part_off, n_sp = parts[0].part_id, eng_mxu.num_special
+    ngr = len(mpack.mxu)
+    mxu_cases = [
+        ("mxu_ntt_fwd", f"B=4 C={C} enter (_cc_mult_core), {ngr} groups",
+         lambda p: cuda_mxu.dispatch(x4, mpack.mxu, enter=True, plain=p),
+         mxu_ntt_work(mpack.mxu, 4, S, R), "mxu_ntt.cu",
+         "liberate_tpu/ntt/mxu_pallas.py:143"),
+        ("mxu_ntt_inv", f"B=3 C={C} exitx+reduce (_relin_pre), {ngr} groups",
+         lambda p: cuda_mxu.dispatch(x3, mpack.mxu, inverse=True, exitx=True,
+                                     post_reduce=True, plain=p),
+         mxu_ntt_work(mpack.mxu, 3, S, R), "mxu_ntt.cu",
+         "liberate_tpu/ntt/mxu_pallas.py:163"),
+    ]
+    sw_base = (st, terms, off0)
+    ks = (_ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0))
+    if preset == "silver":
+        mxu_cases += [
+            ("mxu_switch", f"P={P} C_sp={C_sp} A={A} level={level}, special "
+             f"then ordinary mode",
+             lambda p: cuda_mxu.dispatch_switch(
+                 *sw_base, piw, *ks, mpack_sp.mxu, level, part_off, n_sp,
+                 plain=p),
+             mxu_switch_work(mpack_sp.mxu, P, A, n_sp, S, R),
+             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:815"),
+            ("mxu_switch_inv_mont", f"P={P} C_sp={C_sp} A={A} "
+             f"level={level}, Montgomery-form key",
+             lambda p: cuda_mxu.dispatch_switch_inv(
+                 *sw_base, k0, k1, mpack_sp.mxu, level, part_off, plain=p),
+             mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R, mont=True),
+             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:588"),
+        ]
+    else:
+        mxu_cases.append(
+            ("mxu_switch_inv", f"P={P} C_sp={C_sp} A={A} level={level}, "
+             f"Shoup-form key",
+             lambda p: cuda_mxu.dispatch_switch_inv(
+                 *sw_base, *ks, mpack_sp.mxu, level, part_off, plain=p),
+             mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R),
+             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:777"))
+    for name, label, run, work, file, replaces in mxu_cases:
+        by, muls, macs = work
+        print(f"  {preset} {name} work: {by} bytes, {muls} 32-bit "
+              f"multiplies, {macs} int8 MACs")
+        check_case(name, f"{preset} {label}", lambda run=run: run(False),
+                   lambda run=run: run(True), bound(by, muls, macs), rows,
+                   "liberate_tpu_torch/csrc/" + file, replaces)
 
 
 def main():
@@ -303,8 +474,7 @@ def main():
     import liberate_tpu_torch
     from liberate_tpu_torch import _build
     from liberate_tpu_torch.fhe.context.ckks_context import CkksContext
-    from liberate_tpu_torch.fhe.engine import _ksk_shoup
-    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt, mxu_ntt
+    from liberate_tpu_torch.ntt import mxu_ntt
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -347,137 +517,34 @@ def main():
           f"build {times[0]:.3f} s uncached, {times[1]:.3f} s building and "
           f"writing the cache, {times[2]:.3f} s read from the cache")
 
-    # -- 4. kernels against their twins at the silver shapes ---------------------
-    t = time.perf_counter()
-    eng = liberate_tpu_torch.CkksEngine(**silver, seed=SEED)
-    print(f"silver engine (context, tables): "
-          f"{time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    eng_mxu = liberate_tpu_torch.CkksEngine(**silver, seed=SEED,
-                                            use_mxu_ntt=True)
-    print(f"silver MXU engine (context, cached tables): "
-          f"{time.perf_counter() - t:.2f} s")
-    level = 1
-    pack = eng.pack(level, -1)
-    pack_sp = eng.pack(level, -2)
-    parts = eng.ntt.parts(level)
-    C, C_sp, P = pack.q.shape[0], pack_sp.q.shape[0], len(parts)
-    N, logN = eng.ctx.N, eng.ctx.logN
-    C0_sp = eng.ntt.total_channels
-    print(f"silver shapes at level {level}: N={N} C={C} C_sp={C_sp} P={P} "
-          f"C0_sp={C0_sp} part_off={parts[0].part_id}")
-
+    # -- 4. kernels against their twins at the silver and gold shapes ----------
     rows = {}
-    k0 = random_words(eng.pack(0, -2).q, (len(eng.ntt.parts(0)), C0_sp, N),
-                      gen, lazy=True)
-    k1 = random_words(eng.pack(0, -2).q, k0.shape, gen, lazy=True)
-    butterfly = [
-        ("ntt_fwd", f"B=4 C={C} pre_enter (_cc_mult_core)",
-         (random_words(pack.q, (4, C, N), gen), pack.plan),
-         dict(pre_enter=True)),
-        ("ntt_fwd", f"B={P} C={C_sp} (switch extension)",
-         (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True),
-          pack_sp.plan), {}),
-        ("ntt_inv", f"B=3 C={C} exit+reduce (_relin_pre)",
-         (random_words(pack.q, (3, C, N), gen, lazy=True), pack.plan),
-         dict(post_exit=True, post_reduce=True)),
-        ("ntt_inv", f"B=2 C={C_sp} reduce (intt_reduce)",
-         (random_words(pack_sp.q, (2, C_sp, N), gen, lazy=True),
-          pack_sp.plan),
-         dict(post_reduce=True)),
-        ("ksk_mulacc", f"P={P} C={C_sp} level={level}",
-         (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True), k0, k1,
-          pack_sp.plan, level, parts[0].part_id), {}),
-    ]
-    kernels = {"ntt_fwd": (cuda_ntt.ntt_fwd, cuda_ntt.ntt_fwd_plain,
-                           "liberate_tpu_torch/csrc/ntt.cu",
-                           "liberate_tpu/ntt/pallas_ntt.py:534"),
-               "ntt_inv": (cuda_ntt.ntt_inv, cuda_ntt.ntt_inv_plain,
-                           "liberate_tpu_torch/csrc/ntt.cu",
-                           "liberate_tpu/ntt/pallas_ntt.py:577"),
-               "ksk_mulacc": (cuda_ntt.ksk_mulacc, cuda_ntt.ksk_mulacc_plain,
-                              "liberate_tpu_torch/csrc/ksk_mulacc.cu",
-                              "liberate_tpu/ntt/pallas_ntt.py:693")}
-    for name, label, args, kw in butterfly:
-        fn, twin, src, replaces = kernels[name]
-        library = None
-        if name == "ksk_mulacc":
-            x = args[0]
-            words = x.numel() * 3 + 2 * C_sp * N
-            b = bound(8 * words, 2 * x.numel() * MONT_MULS)
-            if opts.compile_yardstick:
-                def library(twin=twin, args=args):
-                    # Yardstick only, used nowhere in the port: what
-                    # torch.compile makes of the plain twin (no PyTorch
-                    # call computes a modular product of 62-bit words).
-                    t = time.perf_counter()
-                    compiled = torch.compile(twin)
-                    if not torch.equal(torch.stack(compiled(*args)),
-                                       torch.stack(twin(*args))):
-                        raise AssertionError("compiled ksk_mulacc twin "
-                                             "differs")
-                    print(f"  torch.compile of the twin: "
-                          f"{time.perf_counter() - t:.1f} s")
-                    return cuda_ms(lambda: compiled(*args), 100)[0]
-        else:
-            x = args[0]
-            B, cx = x.shape[0], x.shape[1]
-            muls = B * cx * (N // 2) * logN
-            if name == "ntt_inv" or kw.get("pre_enter"):
-                muls += B * cx * N          # the exit or entry multiply
-            b = bound(8 * (2 * x.numel() + 2 * cx * N), muls * SHOUP_MULS)
-        check_case(name, label, lambda: fn(*args, **kw),
-                   lambda: twin(*args, **kw), b, rows, src, replaces,
-                   library)
-
-    # The tensor-core kernels at the shapes of the silver MXU mult.
-    mpack = eng_mxu.pack(level, -1)
-    mpack_sp = eng_mxu.pack(level, -2)
-    S, R = mpack.mxu[0].plan.S, mpack.mxu[0].plan.R
-    A = max(p.alpha for p in parts)
-    x4 = random_words(mpack.q, (4, C, N), gen, lazy=True)
-    x3 = random_words(mpack.q, (3, C, N), gen, lazy=True)
-    st = torch.randint(0, 1 << 62, (P, A, N), generator=gen, device=dev,
-                       dtype=torch.int64)
-    pack0 = eng_mxu.pack(0, -2)
-    ks = (_ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0))
-    terms, off0, piw = eng_mxu._mxu_switch_tables(level)
-    sw_args = (st, terms, off0, piw, *ks, mpack_sp.mxu, level,
-               parts[0].part_id, eng_mxu.num_special)
-    src = "liberate_tpu_torch/csrc/"
-    mxu_cases = [
-        ("mxu_ntt_fwd", f"B=4 C={C} enter (_cc_mult_core), "
-         f"{len(mpack.mxu)} groups",
-         lambda p: cuda_mxu.dispatch(x4, mpack.mxu, enter=True, plain=p),
-         mxu_ntt_work(mpack.mxu, 4, S, R), "mxu_ntt.cu",
-         "liberate_tpu/ntt/mxu_pallas.py:143"),
-        ("mxu_ntt_inv", f"B=3 C={C} exitx+reduce (_relin_pre), "
-         f"{len(mpack.mxu)} groups",
-         lambda p: cuda_mxu.dispatch(x3, mpack.mxu, inverse=True, exitx=True,
-                                     post_reduce=True, plain=p),
-         mxu_ntt_work(mpack.mxu, 3, S, R), "mxu_ntt.cu",
-         "liberate_tpu/ntt/mxu_pallas.py:163"),
-        ("mxu_switch", f"P={P} C_sp={C_sp} A={A} level={level}, special "
-         f"then ordinary mode",
-         lambda p: cuda_mxu.dispatch_switch(*sw_args, plain=p),
-         mxu_switch_work(mpack_sp.mxu, P, A, eng_mxu.num_special, S, R),
-         "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:815"),
-    ]
-    for name, label, run, work, file, replaces in mxu_cases:
-        by, muls, macs = work
-        print(f"  {name} work: {by} bytes, {muls} 32-bit multiplies, "
-              f"{macs} int8 MACs")
-        check_case(name, label, lambda run=run: run(False),
-                   lambda run=run: run(True), bound(by, muls, macs), rows,
-                   src + file, replaces)
+    engines = {}
+    for preset in ("silver", "gold"):
+        params = liberate_tpu_torch.params[preset]
+        t = time.perf_counter()
+        eng = liberate_tpu_torch.CkksEngine(**params, seed=SEED)
+        print(f"{preset} engine (context, tables): "
+              f"{time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        eng_mxu = liberate_tpu_torch.CkksEngine(**params, seed=SEED,
+                                                use_mxu_ntt=True)
+        print(f"{preset} MXU engine (context, tables"
+              f"{', cached' if preset == 'silver' else ''}): "
+              f"{time.perf_counter() - t:.2f} s")
+        engines[preset] = (eng, eng_mxu)
+        kernel_phase(preset, eng, eng_mxu, gen, rows,
+                     opts.compile_yardstick and preset == "silver")
 
     # -- 5. the path at logN 8: card against the CPU twins -----------------------
-    for use_mxu in (False, True):
-        domain = "MXU" if use_mxu else "butterfly"
+    for kw in (dict(use_mxu_ntt=False), dict(use_mxu_ntt=True),
+               dict(use_mxu_ntt=True, use_shoup_ksk=False)):
+        domain = ("butterfly" if not kw["use_mxu_ntt"] else
+                  "MXU" if kw.get("use_shoup_ksk", True) else
+                  "MXU Montgomery-key")
         outs = []
         for device in ("cuda:0", "cpu"):
-            e = liberate_tpu_torch.CkksEngine(device=device,
-                                              use_mxu_ntt=use_mxu, **SMALL)
+            e = liberate_tpu_torch.CkksEngine(device=device, **kw, **SMALL)
             sk = e.create_secret_key()
             pk = e.create_public_key(sk)
             evk = e.create_evk(sk)
@@ -497,11 +564,18 @@ def main():
         print(f"logN 8 {domain} path: card and CPU twins give identical "
               f"keys, ciphertexts and mult output")
 
-    # -- 6. the silver path through the public API, in each domain ---------------
-    drive_silver(eng, "butterfly", list(cuda_ntt.launches),
-                 list(cuda_mxu.launches), rows)
-    drive_silver(eng_mxu, "MXU", list(cuda_mxu.launches),
-                 list(cuda_ntt.launches), rows)
+    # -- 6. the paths through the public API -------------------------------------
+    eng, eng_mxu = engines["silver"]
+    drive_path(eng, "silver butterfly", rows)
+    drive_path(eng_mxu, "silver MXU", rows)
+    eng_mont = liberate_tpu_torch.CkksEngine(
+        **liberate_tpu_torch.params["silver"], seed=SEED, use_mxu_ntt=True,
+        use_shoup_ksk=False)
+    drive_path(eng_mont, "silver MXU Montgomery-key", rows)
+    del eng, eng_mxu, eng_mont, engines["silver"]
+    eng, eng_mxu = engines["gold"]
+    drive_path(eng, "gold butterfly", rows)
+    drive_path(eng_mxu, "gold MXU", rows)
 
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

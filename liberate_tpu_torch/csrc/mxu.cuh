@@ -45,7 +45,9 @@ constexpr int kPitch = 36;    // bytes per column of a staged digit chunk
 constexpr u64 kTop = 1ULL << 63;
 
 enum In { kRows = 0, kCols = 1 };
-enum Epi { kTwiddle = 0, kOut = 1, kKsk = 2 };
+// kKsk: Shoup products with (value, quotient) key pairs; kKskMont:
+// Montgomery products with single Montgomery-form key stacks.
+enum Epi { kTwiddle = 0, kOut = 1, kKsk = 2, kKskMont = 3 };
 
 // Arguments of one stage. Word tensors are int64 on the device; channel
 // arrays are already offset to the channel set of the launch.
@@ -61,7 +63,8 @@ struct Stage {
   int tw_t;             // twiddle of (o, j) at tw[j*O + o] (else o*J + j)
   const u64 *q, *k, *bp, *whi, *wphi, *corr;  // [C]
   int post_reduce;      // kOut: [0, 2q) -> [0, q)
-  // kKsk: Shoup key products with both key halves, summed over P parts
+  // kKsk / kKskMont: key products with both key halves, summed over P
+  // parts (k0wp, k1wp: the Shoup quotients, kKsk only)
   const u64 *k0w, *k0wp, *k1w, *k1wp;
   long long k_sp, k_sc;
   int P;
@@ -178,11 +181,12 @@ __global__ void __launch_bounds__(128) stage(const Stage a) {
   const int* rs = a.rs + (size_t)c * DA * a.O;
   const u64 q = a.q[c], bp = a.bp[c];
   const u64 whi = a.whi[c], wphi = a.wphi[c], corr = a.corr[c];
-  const int nparts = EPI == kKsk ? a.P : 1;
+  constexpr bool kSum = EPI == kKsk || EPI == kKskMont;
+  const int nparts = kSum ? a.P : 1;
 
-  u64 sum0[2][2][2], sum1[2][2][2];  // kKsk: [n-fragment][row half][col]
+  u64 sum0[2][2][2], sum1[2][2][2];  // kSum: [n-fragment][row half][col]
   for (int p = 0; p < nparts; ++p) {
-    const int bb = EPI == kKsk ? p : b;
+    const int bb = kSum ? p : b;
     int acc[DA][2][4];
 #pragma unroll
     for (int u = 0; u < DA; ++u)
@@ -261,14 +265,20 @@ __global__ void __launch_bounds__(128) stage(const Stage a) {
             a.y[bb * a.y_sb + c * a.y_sc + n] = val;
           } else {
             const long long ki = p * a.k_sp + c * a.k_sc + n;
-            const u64 p0 = shoup_mul(val, a.k0w[ki], a.k0wp[ki], q);
-            const u64 p1 = shoup_mul(val, a.k1w[ki], a.k1wp[ki], q);
+            u64 p0, p1;
+            if (EPI == kKsk) {
+              p0 = shoup_mul(val, a.k0w[ki], a.k0wp[ki], q);
+              p1 = shoup_mul(val, a.k1w[ki], a.k1wp[ki], q);
+            } else {
+              p0 = montmul(val, a.k0w[ki], q, a.k[c]);
+              p1 = montmul(val, a.k1w[ki], q, a.k[c]);
+            }
             sum0[f][h][e] = p ? csub_u(sum0[f][h][e] + p0, 2 * q) : p0;
             sum1[f][h][e] = p ? csub_u(sum1[f][h][e] + p1, 2 * q) : p1;
           }
         }
   }
-  if (EPI == kKsk) {
+  if (kSum) {
 #pragma unroll
     for (int f = 0; f < 2; ++f)
 #pragma unroll

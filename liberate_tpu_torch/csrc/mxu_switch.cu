@@ -1,39 +1,51 @@
-// The fused key switch of one width group on the tensor-core NTT, with the
-// special-prime mod-down folded in.
+// The key switch of one width group on the tensor-core NTT: with the
+// special-prime mod-down folded in (ltt_mxu_switch), or without it
+// (ltt_mxu_switch_inv).
 //
-// Replaces: liberate_tpu/ntt/mxu_pallas.py `_make_md_kernel` (:815, body
-// :839), launched per width group by `_ksk_from_state_md_call` (:1039) and
-// `dispatch_ksk_from_state` (:1127), in both modes: `special` (the group
-// holding the special primes: its dropped rows are iterated and exported)
-// and `ordinary` (the other groups: they consume the exported rows). Per
-// (channel, part) it computes the Shoup basis extension of the part's raw
-// divided-difference state, the forward four-step transform, both Shoup
-// key products, the sum over the parts (a conditional subtract after each
-// add), the inverse transform of both sums with the plain reduce, and the
-// removal of the special primes. Same words as the Pallas kernel, with
-// its lazy representatives (which differ from engine._mod_down_shoup's
-// for more than two special primes).
+// Replaces, ltt_mxu_switch: liberate_tpu/ntt/mxu_pallas.py
+// `_make_md_kernel` (:815, body :839), launched per width group by
+// `_ksk_from_state_md_call` (:1039) and `dispatch_ksk_from_state` (:1127),
+// in both modes: `special` (the group holding the special primes: its
+// dropped rows are iterated and exported) and `ordinary` (the other
+// groups: they consume the exported rows). Same words as the Pallas
+// kernel; its ordinary rows also equal what ltt_mxu_switch_inv followed by
+// the engine's separate mod-down gives (tests/test_torch_switch.py holds
+// the two routes' mult words equal at two and four special primes).
+//
+// Replaces, ltt_mxu_switch_inv: `_ext_mulacc_inv_kernel_sk` (:777, Shoup-form
+// key: value and quotient stacks) and `_ext_mulacc_inv_kernel` (:588,
+// Montgomery-form key), both launched per width group by
+// `ksk_accum_from_state` (:994) from `dispatch_ksk_from_state` (:1179-1203)
+// when the mod-down is not folded (logN 16 and up, or a Montgomery-form
+// key). Its output goes through the engine's separate Shoup mod-down.
+//
+// Per (channel, part) both compute the Shoup basis extension of the part's
+// raw divided-difference state, the forward four-step transform, both key
+// products (Shoup, or Montgomery as mxu_pallas.py:525-526), the sum over
+// the parts (a conditional subtract after each add), and the inverse
+// transform of both sums with the plain reduce to [0, q).
 //
 // What bounds it on the H100: about equally the int8 multiply-accumulates
 // of the P forward and two inverse transforms per channel and the bytes of
-// the Shoup-form key (value and quotient of both halves: 32 bytes per
-// coefficient, channel and part), then the tables.
+// the key (value and quotient of both halves: 32 bytes per coefficient,
+// channel and part in Shoup form, 16 in Montgomery form), then the tables.
 //
-// Design: the Pallas kernel walks the parts sequentially per channel with
+// Design: the Pallas kernels walk the parts sequentially per channel with
 // both sums in VMEM; Hopper blocks run in no order, and a channel does not
-// fit a block. So the switch is six launches through global memory (L2):
+// fit a block. So the switch is five launches through global memory (L2),
+// and the fold a sixth:
 //   1. the extension of every part onto every channel, elementwise (once
 //      per word: the stage blocks of one channel would each repeat it);
 //   2. stage 1 of the forward transform of every part;
 //   3. stage 2, where each block loops over the parts of its tile and
 //      keeps both key-product sums in registers;
 //   4./5. the two inverse stages of both sums, the last with the reduce;
-//   6. the mod-down fold, its own launch (the next slice's switch without
-//      mod-down is launches 1-5): one thread per (half, coefficient) walks
-//      the special group's dropped rows in drop order, exports them, and
-//      applies the removal steps to every ordinary channel of the group.
-//      The cross-channel dependency of the dropped rows is thereby inside
-//      one thread, and the dependency between groups is the launch order.
+//   6. (ltt_mxu_switch only) the mod-down fold: one thread per (half,
+//      coefficient) walks the special group's dropped rows in drop order,
+//      exports them, and applies the removal steps to every ordinary
+//      channel of the group. The cross-channel dependency of the dropped
+//      rows is thereby inside one thread, and the dependency between groups
+//      is the launch order.
 #include "mxu.cuh"
 
 using mxu::Stage;
@@ -115,28 +127,20 @@ __global__ void fold(u64* r, long long r_sh, int C, int N, int n_sp,
   }
 }
 
-}  // namespace
-
-// st: [P, A, N] raw state rows; terms: [P, nterms, 3, ldc] and piw:
-// [n_sp, 2, ldc] (pointers at the group's first channel); off0: [C].
-// k*: the Shoup-form key stacks [P_full, C0, N] at (part_off, first key
-// channel) with strides (k_sp, k_sc, 1). ext, inter1: scratch [P, C, N];
-// acc, inter2: scratch [2, C, N]; out: [2][C][N] with strides
-// (out_sh, N, 1). m1 .. ir2: the group's tables; q .. corr: [C].
-extern "C" int ltt_mxu_switch(
-    int d, int special, int n_sp, const void* st, int P, int A,
-    const void* terms, int nterms, int ldc, const void* off0,
-    const void* piw, const void* k0w, const void* k0wp, const void* k1w,
-    const void* k1wp, long long k_sp, long long k_sc, const void* srcs_in,
-    void* srcs_out, void* ext, void* inter1, void* acc, void* inter2,
-    void* out,
-    long long out_sh, int C, int logN, const void* m1, const void* r1,
-    const void* tw, const void* m2, const void* r2, const void* i1,
-    const void* ir1, const void* itw, const void* i2, const void* ir2,
-    const void* q, const void* k, const void* bp, const void* whi,
-    const void* wphi, const void* corr, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_sp > kMaxSpecial) return -1;
+// Launches 1-5. mont: Montgomery-form key stacks (k0w, k1w; the quotient
+// pointers are unused), else Shoup-form pairs.
+int switch_core(int d, int mont, const void* st, int P, int A,
+                const void* terms, int nterms, int ldc, const void* off0,
+                const void* k0w, const void* k0wp, const void* k1w,
+                const void* k1wp, long long k_sp, long long k_sc, void* ext,
+                void* inter1, void* acc, void* inter2, void* out,
+                long long out_sh, int C, int logN, const void* m1,
+                const void* r1, const void* tw, const void* m2,
+                const void* r2, const void* i1, const void* ir1,
+                const void* itw, const void* i2, const void* ir2,
+                const void* q, const void* k, const void* bp,
+                const void* whi, const void* wphi, const void* corr,
+                cudaStream_t s) {
   const int N = 1 << logN;
   const int S = 1 << ((logN + 1) / 2);
   const int R = N / S;
@@ -191,7 +195,8 @@ extern "C" int ltt_mxu_switch(
   b.k_sp = k_sp;
   b.k_sc = k_sc;
   b.P = P;
-  rc = mxu::launch<mxu::kCols, mxu::kKsk>(d, b, 1, C, s);
+  rc = mont ? mxu::launch<mxu::kCols, mxu::kKskMont>(d, b, 1, C, s)
+            : mxu::launch<mxu::kCols, mxu::kKsk>(d, b, 1, C, s);
   if (rc != 0) return rc;
 
   // 4. inverse stage 1 of both sums
@@ -226,13 +231,61 @@ extern "C" int ltt_mxu_switch(
   e.rs = (const int*)ir2;
   e.tw = nullptr;
   e.post_reduce = 1;
-  rc = mxu::launch<mxu::kCols, mxu::kOut>(d, e, 2, C, s);
+  return mxu::launch<mxu::kCols, mxu::kOut>(d, e, 2, C, s);
+}
+
+}  // namespace
+
+// st: [P, A, N] raw state rows; terms: [P, nterms, 3, ldc] and piw:
+// [n_sp, 2, ldc] (pointers at the group's first channel); off0: [C].
+// k*: the Shoup-form key stacks [P_full, C0, N] at (part_off, first key
+// channel) with strides (k_sp, k_sc, 1). ext, inter1: scratch [P, C, N];
+// acc, inter2: scratch [2, C, N]; out: [2][C][N] with strides
+// (out_sh, N, 1). m1 .. ir2: the group's tables; q .. corr: [C].
+extern "C" int ltt_mxu_switch(
+    int d, int special, int n_sp, const void* st, int P, int A,
+    const void* terms, int nterms, int ldc, const void* off0,
+    const void* piw, const void* k0w, const void* k0wp, const void* k1w,
+    const void* k1wp, long long k_sp, long long k_sc, const void* srcs_in,
+    void* srcs_out, void* ext, void* inter1, void* acc, void* inter2,
+    void* out,
+    long long out_sh, int C, int logN, const void* m1, const void* r1,
+    const void* tw, const void* m2, const void* r2, const void* i1,
+    const void* ir1, const void* itw, const void* i2, const void* ir2,
+    const void* q, const void* k, const void* bp, const void* whi,
+    const void* wphi, const void* corr, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_sp > kMaxSpecial) return -1;
+  const int rc = switch_core(d, 0, st, P, A, terms, nterms, ldc, off0, k0w,
+                             k0wp, k1w, k1wp, k_sp, k_sc, ext, inter1, acc,
+                             inter2, out, out_sh, C, logN, m1, r1, tw, m2,
+                             r2, i1, ir1, itw, i2, ir2, q, k, bp, whi, wphi,
+                             corr, s);
   if (rc != 0) return rc;
 
   // 6. the mod-down fold
-  fold<<<(unsigned)((2LL * N + kThreads - 1) / kThreads), kThreads, 0, s>>>((u64*)out, out_sh, C, N, n_sp, special,
-                                  (const u64*)srcs_in, (u64*)srcs_out,
-                                  (const u64*)piw, ldc, (const u64*)q,
-                                  (const u64*)bp);
+  const int N = 1 << logN;
+  fold<<<(unsigned)((2LL * N + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      (u64*)out, out_sh, C, N, n_sp, special, (const u64*)srcs_in,
+      (u64*)srcs_out, (const u64*)piw, ldc, (const u64*)q, (const u64*)bp);
   return (int)cudaGetLastError();
+}
+
+// The switch without the mod-down: arguments as ltt_mxu_switch's, minus the
+// fold's; mont: k0w, k1w are Montgomery-form key stacks (k0wp, k1wp
+// unused), else the Shoup-form pairs.
+extern "C" int ltt_mxu_switch_inv(
+    int d, int mont, const void* st, int P, int A, const void* terms,
+    int nterms, int ldc, const void* off0, const void* k0w,
+    const void* k0wp, const void* k1w, const void* k1wp, long long k_sp,
+    long long k_sc, void* ext, void* inter1, void* acc, void* inter2,
+    void* out, long long out_sh, int C, int logN, const void* m1,
+    const void* r1, const void* tw, const void* m2, const void* r2,
+    const void* i1, const void* ir1, const void* itw, const void* i2,
+    const void* ir2, const void* q, const void* k, const void* bp,
+    const void* whi, const void* wphi, const void* corr, void* stream) {
+  return switch_core(d, mont, st, P, A, terms, nterms, ldc, off0, k0w, k0wp,
+                     k1w, k1wp, k_sp, k_sc, ext, inter1, acc, inter2, out,
+                     out_sh, C, logN, m1, r1, tw, m2, r2, i1, ir1, itw, i2,
+                     ir2, q, k, bp, whi, wphi, corr, (cudaStream_t)stream);
 }

@@ -17,9 +17,10 @@ multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``.
 With ``use_mxu_ntt=True`` (the JAX package's ``config.use_mxu_ntt`` path
 for its accelerator) every transform runs in the tensor-core kernels of
 ``ntt.cuda_mxu`` (natural-order NTT domain), and the key switch is one
-fused kernel per width group: extension from the raw divided-difference
-state, transform, Shoup-form key products summed over the parts, inverse,
-and the special-prime mod-down.
+kernel per width group: extension from the raw divided-difference state,
+transform, key products summed over the parts, inverse, and, up to
+``FOLD_MAX_LOGN`` with a Shoup-form key, the special-prime mod-down; else
+the plain-domain mod-down follows as torch ops (``switch_route``).
 """
 
 import math
@@ -213,6 +214,23 @@ def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
     return acc
 
 
+# The largest logN at which the tensor-core switch folds the special-prime
+# mod-down into its kernels, as the JAX engine does (its fold kernel
+# overflows the TPU's scoped VMEM at logN 16).
+FOLD_MAX_LOGN = 15
+
+
+def switch_route(logN, shoup_ksk):
+    """The tensor-core switch kernel the JAX engine runs at this logN and
+    key form, by the name of its launch counter: ``mxu_switch`` (mod-down
+    folded in; Shoup-form key, logN <= FOLD_MAX_LOGN), ``mxu_switch_inv``
+    (Shoup-form key, separate mod-down) or ``mxu_switch_inv_mont``
+    (Montgomery-form key, separate mod-down)."""
+    if not shoup_ksk:
+        return "mxu_switch_inv_mont"
+    return "mxu_switch" if logN <= FOLD_MAX_LOGN else "mxu_switch_inv"
+
+
 def _ksk_shoup(k, pack):
     """Montgomery-form key words [..., C, N] -> the Shoup pair (w, wp): the
     plain value w = REDC(k) in [0, q) and floor(w * 2^64 / q)."""
@@ -231,12 +249,16 @@ class CkksEngine:
     switch in the tensor-core kernels (natural-order NTT domain) instead of
     the butterfly kernels; one engine uses one domain throughout, and its
     keys and ciphertexts are for engines of the same domain.
+    ``use_shoup_ksk`` (tensor-core domain only, as the JAX package's
+    ``config.use_shoup_ksk``): keep the key stacks in Shoup form (value and
+    quotient); else in Montgomery form, and the switch never folds the
+    mod-down.
     """
 
     def __init__(self, device=None, verbose: bool = False,
                  bias_guard: bool = True, norm: str = "forward",
                  seed=None, mesh_shape=None, use_mxu_ntt: bool = False,
-                 **ctx_params):
+                 use_shoup_ksk: bool = True, **ctx_params):
         if mesh_shape not in (None, 1):
             raise ValueError("the port runs on one device (mesh_shape=None)")
         self.device = resolve_device(device)
@@ -244,6 +266,7 @@ class CkksEngine:
         self.norm = norm
         self.version = VERSION
         self.use_mxu_ntt = bool(use_mxu_ntt)
+        self.use_shoup_ksk = bool(use_shoup_ksk)
 
         self.ctx = CkksContext(verbose=verbose, **ctx_params)
         self.ntt = NttContext(self.ctx, self.device, use_mxu=self.use_mxu_ntt)
@@ -471,15 +494,16 @@ class CkksEngine:
         switch reads the level's channels and the active parts through
         strides, without slicing copies. Small LRU keyed by identity.
 
-        Tensor-core domain: each half in Shoup form, a pair of the plain
-        value w = REDC(k) in [0, q) and its quotient floor(w 2^64 / q), so
-        the switch kernel's key products are Shoup products."""
+        Tensor-core domain with ``use_shoup_ksk``: each half in Shoup form,
+        a pair of the plain value w = REDC(k) in [0, q) and its quotient
+        floor(w 2^64 / q), so the switch kernel's key products are Shoup
+        products; without it the Montgomery-form words as they are."""
         if ksk in self._ksk_stacked_cache:
             self._ksk_stacked_cache.move_to_end(ksk)
             return self._ksk_stacked_cache[ksk]
         k0 = torch.stack([part.data[0] for part in ksk.data])
         k1 = torch.stack([part.data[1] for part in ksk.data])
-        if self.use_mxu_ntt:
+        if self.use_mxu_ntt and self.use_shoup_ksk:
             pack0 = self.pack(0, -2)
             k0, k1 = _ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0)
         self._ksk_stacked_cache[ksk] = (k0, k1)
@@ -650,9 +674,9 @@ class CkksEngine:
     def _switch_mxu(self, a, ksk: DataStruct, level: int):
         """_switch in the tensor-core domain: the raw divided-difference
         state of each part, zero-padded to A rows and stacked [P, A, N],
-        goes through the fused switch kernels (extension, transform, key
-        products, inverse, mod-down), which leave the ordinary rows fully
-        mod-downed."""
+        goes through the switch kernels (extension, transform, key
+        products, inverse), which also fold in the mod-down on the
+        ``switch_route`` that does; else the Shoup mod-down follows."""
         parts = self.ntt.parts(level)
         A = max(p.alpha for p in parts)
         zero = torch.zeros_like(a[0:1])
@@ -662,11 +686,20 @@ class CkksEngine:
                       for p in parts)])
         terms, off0, piw = self._mxu_switch_tables(level)
         k0, k1 = self._ksk_stacked(ksk)
-        d = cuda_mxu.dispatch_switch(st, terms, off0, piw, k0, k1,
-                                     self.pack(level, -2).mxu, level,
-                                     parts[0].part_id, self.num_special)
-        C = self.ntt.num_channels(level, -1)
-        return d[0, :C], d[1, :C]
+        pack_sp = self.pack(level, -2)
+        part_off = parts[0].part_id
+        if switch_route(self.ctx.logN, self.use_shoup_ksk) == "mxu_switch":
+            d = cuda_mxu.dispatch_switch(st, terms, off0, piw, k0, k1,
+                                         pack_sp.mxu, level, part_off,
+                                         self.num_special)
+            C = self.ntt.num_channels(level, -1)
+            return d[0, :C], d[1, :C]
+        d = cuda_mxu.dispatch_switch_inv(st, terms, off0, k0, k1, pack_sp.mxu,
+                                         level, part_off)
+        d = _mod_down_shoup(d, pack_sp, self.pack(level, -1),
+                            self.PiWs[level], self.bp_sp[level][0],
+                            self.num_special)
+        return d[0], d[1]
 
     # -- rescale / mult ----------------------------------------------------------
 

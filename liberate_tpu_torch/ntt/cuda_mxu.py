@@ -1,7 +1,7 @@
 """The tensor-core ("MXU") kernels: CUDA wrappers, their plain PyTorch twins
 and their launch counters.
 
-Three kernels (sources in ``liberate_tpu_torch/csrc``):
+Four kernels (sources in ``liberate_tpu_torch/csrc``):
 
 - ``mxu_ntt_fwd``: forward negacyclic NTT of one width group, natural
   order, as two int8 matrix-product stages; ``enter`` folds the Montgomery
@@ -13,10 +13,17 @@ Three kernels (sources in ``liberate_tpu_torch/csrc``):
   divided-difference state (extension, transform, Shoup key products
   summed over the parts, inverse, reduce) with the special-prime
   mod-down folded in, in mode ``special`` or ``ordinary`` (replaces
-  ``mxu_pallas._make_md_kernel``).
+  ``mxu_pallas._make_md_kernel``);
+- ``mxu_switch_inv``: the same switch without the mod-down, its output
+  reduced to [0, q) for the engine's separate mod-down; with a Shoup-form
+  key (launch counter ``mxu_switch_inv``, replaces
+  ``mxu_pallas._ext_mulacc_inv_kernel_sk``) or a Montgomery-form key
+  (counter ``mxu_switch_inv_mont``, replaces
+  ``mxu_pallas._ext_mulacc_inv_kernel``).
 
-``dispatch`` and ``dispatch_switch`` run a level's width groups, as
-``mxu_pallas.dispatch`` and ``dispatch_ksk_from_state`` do.
+``dispatch``, ``dispatch_switch`` and ``dispatch_switch_inv`` run a level's
+width groups, as ``mxu_pallas.dispatch`` and ``dispatch_ksk_from_state``
+(with and without ``moddown_piw``) do.
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
@@ -35,7 +42,8 @@ from . import u64
 from .cuda_ntt import _device_kind, _raise_on
 from .mxu_ntt import MxuPlan
 
-launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_switch": 0}
+launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_switch": 0,
+            "mxu_switch_inv": 0, "mxu_switch_inv_mont": 0}
 
 # (dA, dB) pairs with compiled kernels (30-, 40- and 60-bit primes).
 DIGITS = (4, 6, 8)
@@ -163,9 +171,10 @@ def _fold_plain(r, piw, plan, special, n_sp, srcs):
     return (out, srcs) if special else out
 
 
-def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
-                     n_sp, special, srcs=None):
-    """The fused switch of one width group (see ``mxu_switch``)."""
+def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off):
+    """The switch of one width group without the mod-down (see
+    ``mxu_switch_inv``): [2, C, N] in [0, q). k0, k1: Shoup-form (value,
+    quotient) pairs, or Montgomery-form stacks."""
     P, A, N = st.shape
     q = plan.q[:, None]
     q2 = 2 * q
@@ -182,13 +191,26 @@ def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
     def key(t):
         return t[part_off:part_off + P, key_ch:key_ch + C]
 
-    p0 = u64.shoup_mul(x, key(k0[0]), key(k0[1]), q)
-    p1 = u64.shoup_mul(x, key(k1[0]), key(k1[1]), q)
+    if isinstance(k0, tuple):
+        p0 = u64.shoup_mul(x, key(k0[0]), key(k0[1]), q)
+        p1 = u64.shoup_mul(x, key(k1[0]), key(k1[1]), q)
+    else:
+        k = plan.k[:, None]
+        mont = (q & u64.LB_MASK, q >> u64.HALF_NBITS, k & u64.LB_MASK,
+                k >> u64.HALF_NBITS)
+        p0 = u64.montmul(x, key(k0), *mont)
+        p1 = u64.montmul(x, key(k1), *mont)
     a0, a1 = p0[0], p1[0]
     for p in range(1, P):
         a0 = _csub(a0 + p0[p], q2)
         a1 = _csub(a1 + p1[p], q2)
-    r = mxu_ntt_inv_plain(torch.stack([a0, a1]), plan, post_reduce=True)
+    return mxu_ntt_inv_plain(torch.stack([a0, a1]), plan, post_reduce=True)
+
+
+def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
+                     n_sp, special, srcs=None):
+    """The fused switch of one width group (see ``mxu_switch``)."""
+    r = mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off)
     return _fold_plain(r, piw, plan, special, n_sp, srcs)
 
 
@@ -203,6 +225,9 @@ _ARGTYPES = {
     "ltt_mxu_switch": [_I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
                        _L, _I, _I] + [_P] * 16 + [_P],
+    "ltt_mxu_switch_inv": [_I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                           _P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _I]
+    + [_P] * 16 + [_P],
 }
 
 
@@ -293,6 +318,44 @@ def mxu_ntt_inv(x, plan, exitx=False, post_reduce=False, out=None):
     return res.reshape(x.shape) if out is None else res
 
 
+def _check_switch(st, terms, off0, keys, plan, key_ch, part_off):
+    """Shape checks shared by the two switch wrappers."""
+    P, A, N = st.shape
+    C = plan.num_channels
+    if terms.shape[:3] != (P, max(A - 1, 1), 3) or terms.shape[3] != C \
+            or off0.shape != (C,) or N != plan.S * plan.R:
+        raise ValueError("switch: tables do not match the state and plan")
+    for t in keys:
+        if t.shape != keys[0].shape or t.stride() != keys[0].stride() \
+                or t.shape[0] < part_off + P or t.shape[1] < key_ch + C \
+                or t.shape[2] != N:
+            raise ValueError("switch: key stacks do not cover the parts and "
+                             "channels")
+
+
+def _check_dense(st, terms, off0, out, ld):
+    if not st.is_contiguous() or terms.stride() != (
+            terms.shape[1] * 3 * ld, 3 * ld, ld, 1) \
+            or off0.stride() != (1,) or out.stride(1) != st.shape[-1]:
+        raise ValueError("switch: state, scalar tables and output must be "
+                         "dense (channel slices of one layout)")
+
+
+def _switch_scratch(P, C, N, device):
+    """ext, inter1 [P, C, N]; acc, inter2 [2, C, N]: the switch's
+    intermediates between its launches (kept referenced by the caller
+    until the launch call returns)."""
+    ext = torch.empty((P, C, N), dtype=torch.int64, device=device)
+    acc = torch.empty((2, C, N), dtype=torch.int64, device=device)
+    return ext, torch.empty_like(ext), acc, torch.empty_like(acc)
+
+
+def _plan_ptrs(plan):
+    return tuple(getattr(plan, f).data_ptr() for f in
+                 ("m1", "m1_rs", "tw", "m2", "m2_rs", "i1", "i1_rs", "itw",
+                  "i2", "i2_rs", "q", "k", "bp", "whi", "wphi", "corr"))
+
+
 def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
                special, srcs=None, out=None):
     """The fused key switch of one width group with the mod-down folded in.
@@ -317,17 +380,10 @@ def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
                         or not srcs.is_contiguous()):
         raise ValueError(f"mode 'ordinary' needs the special group's "
                          f"[{2 * n_sp}, {N}] rows")
-    if terms.shape[:3] != (P, max(A - 1, 1), 3) or terms.shape[3] != C \
-            or off0.shape != (C,) or piw.shape != (n_sp, 2, C) \
-            or N != plan.S * plan.R:
-        raise ValueError("mxu_switch: tables do not match the state and plan")
+    if piw.shape != (n_sp, 2, C):
+        raise ValueError("mxu_switch: piw does not match the plan")
     keys = (*k0, *k1)
-    for t in keys:
-        if t.shape != keys[0].shape or t.stride() != keys[0].stride() \
-                or t.shape[0] < part_off + P or t.shape[1] < key_ch + C \
-                or t.shape[2] != N:
-            raise ValueError("mxu_switch: key stacks do not cover the parts "
-                             "and channels")
+    _check_switch(st, terms, off0, keys, plan, key_ch, part_off)
     if out is None:
         out = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
     if _device_kind(st) == "cpu":
@@ -337,20 +393,15 @@ def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
         return (out, res[1]) if special else out
     _check_plan(plan, st.device)
     ld = terms.stride(2)
-    if not st.is_contiguous() or terms.stride() != (
-            terms.shape[1] * 3 * ld, 3 * ld, ld, 1) \
-            or piw.stride() != (2 * ld, ld, 1) or off0.stride() != (1,) \
-            or out.stride(1) != N:
-        raise ValueError("mxu_switch: state, scalar tables and output must "
-                         "be dense (channel slices of one layout)")
+    _check_dense(st, terms, off0, out, ld)
+    if piw.stride() != (2 * ld, ld, 1):
+        raise ValueError("mxu_switch: piw must be a channel slice of one "
+                         "layout")
     _check_words(st, terms, off0, piw, out, *keys)
     srcs_out = torch.empty((2 * n_sp, N), dtype=torch.int64,
                            device=st.device) if special else None
     kv = [t[part_off:, key_ch:] for t in keys]
-    ext = torch.empty((P, C, N), dtype=torch.int64, device=st.device)
-    inter1 = torch.empty_like(ext)
-    acc = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
-    inter2 = torch.empty_like(acc)
+    scratch = _switch_scratch(P, C, N, st.device)
     with torch.cuda.device(st.device):
         stream = torch.cuda.current_stream(st.device).cuda_stream
         rc = _fn("mxu_switch", "ltt_mxu_switch")(
@@ -358,17 +409,56 @@ def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
             terms.data_ptr(), terms.shape[1], ld, off0.data_ptr(),
             piw.data_ptr(), *(t.data_ptr() for t in kv), kv[0].stride(0),
             kv[0].stride(1), None if special else srcs.data_ptr(),
-            srcs_out.data_ptr() if special else None, ext.data_ptr(),
-            inter1.data_ptr(),
-            acc.data_ptr(), inter2.data_ptr(), out.data_ptr(), out.stride(0),
-            C, _logN(plan),
-            *(getattr(plan, f).data_ptr() for f in
-              ("m1", "m1_rs", "tw", "m2", "m2_rs", "i1", "i1_rs", "itw",
-               "i2", "i2_rs", "q", "k", "bp", "whi", "wphi", "corr")),
+            srcs_out.data_ptr() if special else None,
+            *(t.data_ptr() for t in scratch),
+            out.data_ptr(), out.stride(0), C, _logN(plan), *_plan_ptrs(plan),
             stream)
     _raise_on(rc, "mxu_switch")
     launches["mxu_switch"] += 1
     return (out, srcs_out) if special else out
+
+
+def mxu_switch_inv(st, terms, off0, k0, k1, plan, key_ch, part_off,
+                   out=None):
+    """The key switch of one width group without the mod-down: out [2, C, N]
+    in [0, q), every channel reduced (the special rows included), for the
+    engine's separate mod-down. Arguments as ``mxu_switch``'s, except the
+    key: (value, quotient) pairs of Shoup-form stacks launch the Shoup-key
+    kernel (counter ``mxu_switch_inv``), single Montgomery-form stacks
+    [P_full, C0, N] the Montgomery-key kernel (``mxu_switch_inv_mont``)."""
+    P, A, N = st.shape
+    C = plan.num_channels
+    mont = not isinstance(k0, tuple)
+    keys = (k0, k1) if mont else (*k0, *k1)
+    _check_switch(st, terms, off0, keys, plan, key_ch, part_off)
+    if out is None:
+        out = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
+    if _device_kind(st) == "cpu":
+        out.copy_(mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch,
+                                       part_off))
+        return out
+    _check_plan(plan, st.device)
+    ld = terms.stride(2)
+    _check_dense(st, terms, off0, out, ld)
+    _check_words(st, terms, off0, out, *keys)
+    kv = [t[part_off:, key_ch:] for t in keys]
+    k0w, k1w = (kv[0], kv[1]) if mont else (kv[0], kv[2])
+    k0wp, k1wp = (None, None) if mont else (kv[1].data_ptr(),
+                                            kv[3].data_ptr())
+    name = "mxu_switch_inv_mont" if mont else "mxu_switch_inv"
+    scratch = _switch_scratch(P, C, N, st.device)
+    with torch.cuda.device(st.device):
+        stream = torch.cuda.current_stream(st.device).cuda_stream
+        rc = _fn("mxu_switch", "ltt_mxu_switch_inv")(
+            plan.dA, int(mont), st.data_ptr(), P, A, terms.data_ptr(),
+            terms.shape[1], ld, off0.data_ptr(), k0w.data_ptr(), k0wp,
+            k1w.data_ptr(), k1wp, kv[0].stride(0), kv[0].stride(1),
+            *(t.data_ptr() for t in scratch),
+            out.data_ptr(), out.stride(0), C, _logN(plan), *_plan_ptrs(plan),
+            stream)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
 
 
 # -- width-group dispatch ------------------------------------------------------------
@@ -419,4 +509,22 @@ def dispatch_switch(st, terms, off0, piw, k0, k1, groups, level, part_off,
             res = mxu_switch(*args, srcs=srcs, out=out[:, g.lo:g.hi])
         if special:
             srcs = res[1]
+    return out
+
+
+def dispatch_switch_inv(st, terms, off0, k0, k1, groups, level, part_off,
+                        plain=False):
+    """The switch without the mod-down over a level's with-special layout,
+    one kernel per width group: [2, C_sp, N] in [0, q). ``level`` is the
+    layout's first global channel, the key stacks' channel of data
+    channel 0. ``plain``: run the twins."""
+    out = torch.empty((2, groups[-1].hi, st.shape[-1]), dtype=torch.int64,
+                      device=st.device)
+    for g in groups:
+        args = (st, terms[..., g.lo:g.hi], off0[g.lo:g.hi], k0, k1, g.plan,
+                level + g.lo, part_off)
+        if plain:
+            out[:, g.lo:g.hi] = mxu_switch_inv_plain(*args)
+        else:
+            mxu_switch_inv(*args, out=out[:, g.lo:g.hi])
     return out

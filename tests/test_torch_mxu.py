@@ -10,7 +10,9 @@ part for the scale primes and (8, 8) for the base and special primes.
   to a JAX engine on its MXU kernel path (interpret mode), which runs only
   ``mult`` (the B=4 ``enter`` transform, the B=3 ``exitx`` + reduce
   inverse, and the fused switch in both modes): its output is bit-identical
-  to the port's ``mult``.
+  to the port's ``mult`` on each switch route (folded; unfolded, as at
+  logN 16, forced through ``engine.FOLD_MAX_LOGN``; Montgomery-form key,
+  ``use_shoup_ksk=False``), which agree with two special primes.
 
 The JAX engine never runs keygen or encryption here: in interpret mode they
 cost tens of seconds.
@@ -30,6 +32,7 @@ from liberate_tpu.fhe.data_struct import DataStruct as JaxDataStruct
 from liberate_tpu.ntt import mxu_ntt, mxu_pallas, u64
 from liberate_tpu.ntt.ntt_context import NttContext
 from liberate_tpu_torch import interop
+from liberate_tpu_torch.fhe import engine as port_engine
 from liberate_tpu_torch.ntt import cuda_mxu, ops
 
 PARAMS = dict(logN=8, scale_bits=40, num_scales=3, num_special_primes=2,
@@ -65,8 +68,17 @@ def port():
     m = rng.uniform(-1, 1, te.num_slots) + 1j * rng.uniform(
         -1, 1, te.num_slots)
     ct = te.encorypt(m, pk)
+    saved, port_engine.FOLD_MAX_LOGN = port_engine.FOLD_MAX_LOGN, 0
+    try:
+        unfolded = te.mult(ct, ct, evk)
+    finally:
+        port_engine.FOLD_MAX_LOGN = saved
+    tm = liberate_tpu_torch.CkksEngine(device="cpu", use_mxu_ntt=True,
+                                       use_shoup_ksk=False, seed=SEED,
+                                       **PARAMS)
     return dict(te=te, sk=sk, evk=evk, m=m, ct=ct,
-                mult=te.mult(ct, ct, evk))
+                mult=te.mult(ct, ct, evk), unfolded=unfolded,
+                mont=tm.mult(ct, ct, evk))
 
 
 @pytest.fixture(scope="module")
@@ -150,15 +162,17 @@ def _to_jax(ds):
 
 def test_mult_bit_identical_to_jax_mxu_kernels(port):
     """The slice: the JAX engine on its MXU kernel path multiplies the
-    port's ciphertext with the port's evk; the words equal the port's."""
+    port's ciphertext with the port's evk; the words equal the port's, on
+    each switch route."""
     with _MxuKernelPath():
         je = liberate_tpu.CkksEngine(seed=SEED, **PARAMS)
         assert je._mxu_fused_switch()
         ct = _to_jax(port["ct"])
         out = je.mult(ct, ct, _to_jax(port["evk"]))
     assert out.level == port["mult"].level == 1
-    for j, t in zip(out.data, port["mult"].data):
-        assert np.array_equal(_words(j), t.numpy())
+    for route in ("mult", "unfolded", "mont"):
+        for j, t in zip(out.data, port[route].data):
+            assert np.array_equal(_words(j), t.numpy()), route
 
 
 def test_mult_decrode_error(port):
