@@ -12,23 +12,32 @@
 4. Holds every kernel against its plain PyTorch twin on the same CUDA
    inputs, bit for bit, and times both with CUDA events beside the
    kernel's bound, at the shapes of the multiply: at silver the butterfly
-   kernels (``ntt_fwd``, ``ntt_inv``, ``ksk_mulacc``), the tensor-core
-   transforms (``mxu_ntt_fwd``, ``mxu_ntt_inv``), the folded switch
-   (``mxu_switch``, both modes) and the Montgomery-key switch
-   (``mxu_switch_inv_mont``); at gold (logN 16) the butterfly kernels, the
-   tensor-core transforms and the Shoup-key switch without the fold
-   (``mxu_switch_inv``).
+   kernels (``ntt_fwd``, ``ntt_inv``, ``ksk_mulacc``, the unsplit switch
+   core ``ntt_mulacc``), the tensor-core transforms (``mxu_ntt_fwd``,
+   ``mxu_ntt_inv``), the folded switch (``mxu_switch``, both modes), the
+   Montgomery-key switch (``mxu_switch_inv_mont``) and the switch core
+   from extension words (``mxu_ksk_accum``, ``mxu_ksk_accum_inv``); at gold
+   (logN 16) the butterfly kernels #1-#3, the tensor-core transforms and
+   the Shoup-key switch without the fold (``mxu_switch_inv``).
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
-   one seed, in both NTT domains and with the Montgomery-form key: the
-   keys and ciphertexts must be identical words.
-6. Drives five paths (keygen -> 2 x encorypt -> mult -> decrode) through
-   the public API, each with the launch counters zeroed just before: silver
-   in each domain, silver in the tensor-core domain with the
-   Montgomery-form key (``use_shoup_ksk=False``), gold in each domain. The
-   multiply must launch the kernels of its path, the path no other kernel
-   (the tensor-core switch kernel is the one ``switch_route`` names), and
-   the decoded error must be < 1e-4. Times mult (median of 7) and
-   profiles one.
+   one seed, in both NTT domains, with the Montgomery-form key and with the
+   unsplit butterfly switch: the keys and ciphertexts must be identical
+   words.
+6. Drives the paths through the public API, each with the launch counters
+   zeroed just before: keygen -> 2 x encorypt -> mult -> decrode at silver
+   in each domain, with the unsplit butterfly switch
+   (``use_split_switch=False``: ``ntt_mulacc``, no ``ksk_mulacc``) and in
+   the tensor-core domain with the Montgomery-form key
+   (``use_shoup_ksk=False``), and at gold in each domain: the multiply must
+   launch the kernels of its path, the path no other kernel (the switch
+   kernels are those ``butterfly_switch_route`` and ``switch_route``
+   name), and the decoded error must be < 1e-4; then the standalone key
+   switch on the unsplit engine (``mult(relin=False)``, ``relinearize``,
+   ``square``, ``switch_key`` to a second key) and the tensor-core switch
+   core from extension words (``_extend_shoup``, ``dispatch_ksk_accum``
+   with and without ``fold_inverse``, ``_mod_down_shoup``) held word for
+   word against the engine's own switch. Times each path's operation
+   (median of 7) and profiles one.
 7. Prints the kernels' JSON line and, last, the result line.
 
 ``--compile-yardstick`` also times ``torch.compile`` of the
@@ -130,26 +139,32 @@ def mxu_ntt_work(groups, B, S, R):
     return by, muls, macs
 
 
-def mxu_switch_work(groups, P, A, n_sp, S, R, mont=False):
+def mxu_switch_work(groups, P, A, n_sp, S, R, mont=False, from_ext=False,
+                    inverse=True):
     """The same for the switch of one ciphertext: the state rows, the key
     of both halves for every part and channel (Shoup pairs, or ``mont``
     single Montgomery-form words), the forward and inverse tables and the
     output rows; P forward and 2 inverse transforms per channel, the
     extension and the key products. With ``n_sp`` the folded mod-down's
-    steps and exported rows as well (0: the switch without the fold)."""
+    steps and exported rows as well (0: the switch without the fold).
+    ``from_ext``: the input is the extension's words [P, C, N] (no
+    extension); ``inverse=False``: no inverse transforms, the key sums are
+    the output."""
     N = S * R
     key_words, key_muls = (2, MONT_MULS) if mont else (4, SHOUP_MULS)
-    by = 8 * P * A * N + 2 * 8 * 2 * n_sp * N
+    by = (0 if from_ext else 8 * P * A * N) + 2 * 8 * 2 * n_sp * N
+    ext_muls = 0 if from_ext else BARRETT_MULS + (A - 1) * SHOUP_MULS
+    inv = 2 if inverse else 0
     muls = macs = 0
     for g in groups:
         C, d = g.hi - g.lo, g.plan.dA
         tr = 2 * recombine_muls(d) + MONT_MULS
-        by += C * (key_words * 8 * P * N + 2 * mxu_table_bytes(d, S, R, N)
+        by += C * ((key_words + from_ext) * 8 * P * N
+                   + (1 + inverse) * mxu_table_bytes(d, S, R, N)
                    + 2 * 8 * N)
-        muls += C * N * (P * (BARRETT_MULS + (A - 1) * SHOUP_MULS + tr
-                              + 2 * key_muls)
-                         + 2 * (tr + n_sp * (BARRETT_MULS + SHOUP_MULS)))
-        macs += C * d * d * N * (S + R) * (P + 2)
+        muls += C * N * (P * (ext_muls + tr + 2 * key_muls)
+                         + inv * (tr + n_sp * (BARRETT_MULS + SHOUP_MULS)))
+        macs += C * d * d * N * (S + R) * (P + inv)
     return by, muls, macs
 
 
@@ -206,25 +221,95 @@ def reset_counters():
     cuda_mxu.reset_launches()
 
 
-def drive_path(eng, label, rows):
-    """keygen -> 2 x encorypt -> mult -> decrode through the public API
-    with the counters zeroed just before; checks the error, that mult
-    launched every kernel of the engine's domain and switch route and that
-    the path launched no other; a kernel's row takes its launches from the
-    first path that launches it. Times mult and profiles one."""
-    import numpy as np
-    import torch
+def check_launches(label, path, own, rows):
+    """The path's counts: every kernel of ``own`` launched, no other; a
+    kernel's row takes its launches from the first path that launches
+    it."""
+    for k in own:
+        if path[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the {label} path")
+        if not rows[k]["launches"]:
+            rows[k]["launches"] = path[k]
+    for k, v in path.items():
+        if k not in own and v != 0:
+            raise AssertionError(f"the {label} path launched {k}")
 
-    from liberate_tpu_torch.fhe.engine import switch_route
-    from liberate_tpu_torch.ntt import cuda_ntt
+
+def time_and_profile(label, op, fn):
+    """Times fn() (host clock, median of 7 after one warm-up) and profiles
+    three calls (torch.profiler; single stream, so kernel times add up to
+    the busy time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    fn()
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    print(f"{label} {op}: median {statistics.median(times):.3f} ms over "
+          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f})")
+
+    reps = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / reps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
+    torch_ops = [e for e in kern if "at::native" in e.key
+                 or e.key.startswith(("Memcpy", "Memset"))]
+    ops_ms = sum(e.self_device_time_total for e in torch_ops) / 1e3 / reps
+    print(f"profile ({label}): {wall:.3f} ms/{op} wall with the profiler "
+          f"on, device busy {busy:.3f} ms/{op} ({len(kern)} kernel names): "
+          f"PyTorch's own kernels {ops_ms:.3f} ms/{op} in "
+          f"{sum(e.count for e in torch_ops) // reps} launches, the port's "
+          f"{busy - ops_ms:.3f} ms/{op}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/{op} "
+              f"x{e.count // reps} {e.key[:100]}")
+
+
+def messages(eng):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
+        -1, 1, eng.num_slots) for _ in range(2)]
+
+
+def own_kernels(eng):
+    """The kernels of the engine's multiply: its domain's transforms and
+    the switch kernel of its route."""
+    from liberate_tpu_torch.fhe.engine import butterfly_switch_route, \
+        switch_route
 
     if eng.use_mxu_ntt:
-        own = ["mxu_ntt_fwd", "mxu_ntt_inv",
-               switch_route(eng.ctx.logN, eng.use_shoup_ksk)]
-    else:
-        own = list(cuda_ntt.launches)
-    other = [k for k in counters() if k not in own]
+        return ["mxu_ntt_fwd", "mxu_ntt_inv",
+                switch_route(eng.ctx.logN, eng.use_shoup_ksk)]
+    route = butterfly_switch_route(eng.ctx.logN, eng.use_split_switch)
+    return ["ntt_fwd", "ntt_inv"] + {"split": ["ksk_mulacc"],
+                                     "fused": ["ntt_mulacc"],
+                                     "composed": []}[route]
 
+
+def drive_path(eng, label, rows, per_mult=None):
+    """keygen -> 2 x encorypt -> mult -> decrode through the public API
+    with the counters zeroed just before; checks the error, that mult
+    launched every kernel of the engine's domain and switch route (exactly
+    ``per_mult`` launches where given) and that the path launched no other.
+    Times mult and profiles one. Returns (sk, pk, evk)."""
+    import torch
+
+    own = own_kernels(eng)
     reset_counters()
     t = time.perf_counter()
     sk = eng.create_secret_key()
@@ -232,11 +317,7 @@ def drive_path(eng, label, rows):
     evk = eng.create_evk(sk)
     torch.cuda.synchronize()
     t_keys = time.perf_counter() - t
-    rng = np.random.default_rng(SEED)
-    m1 = rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
-        -1, 1, eng.num_slots)
-    m2 = rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
-        -1, 1, eng.num_slots)
+    m1, m2 = messages(eng)
     ct1 = eng.encorypt(m1, pk)
     ct2 = eng.encorypt(m2, pk)
     before = counters()
@@ -257,51 +338,105 @@ def drive_path(eng, label, rows):
     for k in own:
         if during[k] <= 0:
             raise AssertionError(f"{k} was not launched by the {label} mult")
-        if not rows[k]["launches"]:
-            rows[k]["launches"] = path[k]
-    for k in other:
-        if path[k] != 0:
-            raise AssertionError(f"the {label} path launched {k}")
+    if per_mult is not None and {k: during[k] for k in per_mult} != per_mult:
+        raise AssertionError(f"the {label} mult launched {during}, not "
+                             f"{per_mult}")
+    check_launches(label, path, own, rows)
+    time_and_profile(label, "mult", lambda: eng.mult(ct1, ct2, evk))
+    return sk, pk, evk
 
-    times = []
-    eng.mult(ct1, ct2, evk)
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.mult(ct1, ct2, evk)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    print(f"{label} mult: median {statistics.median(times):.3f} ms over "
-          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}); "
-          f"launches per mult {during}")
 
-    # Where a mult's device time goes (torch.profiler; single stream, so
-    # kernel times add up to the busy time).
-    from torch.profiler import ProfilerActivity, profile
+def standalone_switch_path(eng, keys, label, rows):
+    """The key switch through its standalone entry points, with the
+    counters zeroed just before: mult(relin=False) -> decrypt_triplet and
+    relinearize, square, and switch_key under a key-switching key to a
+    second secret key; each decoded with its key, error < 1e-4, and the
+    relinearized triplet equal word for word to mult. Times switch_key."""
+    import torch
 
-    reps = 3
+    sk, pk, evk = keys
+    m1, m2 = messages(eng)
+    reset_counters()
+    ct1 = eng.encorypt(m1, pk)
+    ct2 = eng.encorypt(m2, pk)
+    sk2 = eng.create_secret_key()
+    ksk = eng.create_key_switching_key(sk, sk2)
+    ctt = eng.mult(ct1, ct2, evk, relin=False)
+    rel = eng.relinearize(ctt, evk)
+    outs = {"decrypt_triplet": (ctt, sk, m1 * m2),
+            "relinearize": (rel, sk, m1 * m2),
+            "square": (eng.square(ct1, evk), sk, m1 * m1),
+            "switch_key": (eng.switch_key(ct1, ksk), sk2, m1)}
+    errs = {k: abs(eng.absmax_error(eng.decrode(ct, key), want))
+            for k, (ct, key, want) in outs.items()}
+    path = counters()
+    print(f"{label} path: |err| {errs}, launches {path}")
+    for k, e in errs.items():
+        if not e < 1e-4:
+            raise AssertionError(f"{label} {k} error {e} >= 1e-4")
+    if not all(torch.equal(a, b) for a, b in
+               zip(rel.data, eng.mult(ct1, ct2, evk).data)):
+        raise AssertionError(f"{label}: relinearize(mult(relin=False)) "
+                             f"differs from mult")
+    check_launches(label, path, own_kernels(eng), rows)
+    time_and_profile(label, "switch_key", lambda: eng.switch_key(ct1, ksk))
+
+
+def switch_core_path(eng, evk, gen, label, rows):
+    """The tensor-core switch core from extension words on a random plain
+    level-1 polynomial, with the counters zeroed just before: the port's
+    Shoup extension, #8 (dispatch_ksk_accum with fold_inverse) and the
+    Shoup mod-down against the engine's own switch (#9 with the fused
+    extension, then the mod-down), word for word; #7 then the #6 inverse
+    with the reduce against #8, word for word. Times the extension, #8 and
+    the mod-down."""
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import _extend_shoup, \
+        _mod_down_shoup, _pre_extend
+    from liberate_tpu_torch.ntt import cuda_mxu
+
+    level = 1
+    pack, pack_sp = eng.pack(level, -1), eng.pack(level, -2)
+    parts = eng.ntt.parts(level)
+    k0, k1 = eng._ksk_stacked(evk)
+    part_off = parts[0].part_id
+    a = random_words(pack.q, (pack.q.shape[0], eng.ctx.N), gen)
+
+    def extension():
+        return torch.stack([
+            _extend_shoup(_pre_extend(a, p.local_start, p.alpha, p),
+                          p.L_enter_sh, pack_sp, eng.bp_sp[level], level)
+            for p in parts])
+
+    def switch():
+        d = cuda_mxu.dispatch_ksk_accum(extension(), k0, k1, pack_sp.mxu,
+                                        level, part_off, fold_inverse=True)
+        return _mod_down_shoup(d, pack_sp, pack, eng.PiWs[level],
+                               eng.bp_sp[level][0], eng.num_special)
+
+    reset_counters()
+    got = switch()
+    want = eng._switch_mxu(a, evk, level)
+    ext = extension()
+    d8 = cuda_mxu.dispatch_ksk_accum(ext, k0, k1, pack_sp.mxu, level,
+                                     part_off, fold_inverse=True)
+    d7 = cuda_mxu.dispatch_ksk_accum(ext, k0, k1, pack_sp.mxu, level,
+                                     part_off)
+    d76 = cuda_mxu.dispatch(d7, pack_sp.mxu, inverse=True, post_reduce=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(reps):
-            eng.mult(ct1, ct2, evk)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / reps
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
-    torch_ops = [e for e in kern if "at::native" in e.key
-                 or e.key.startswith(("Memcpy", "Memset"))]
-    ops_ms = sum(e.self_device_time_total for e in torch_ops) / 1e3 / reps
-    print(f"profile ({label}): {wall:.3f} ms/mult wall with the profiler "
-          f"on, device busy {busy:.3f} ms/mult ({len(kern)} kernel names): "
-          f"PyTorch's own kernels {ops_ms:.3f} ms/mult in "
-          f"{sum(e.count for e in torch_ops) // reps} launches, the port's "
-          f"{busy - ops_ms:.3f} ms/mult")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/mult "
-              f"x{e.count // reps} {e.key[:100]}")
+    path = counters()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"{label} path: extension + #8 + mod-down "
+          f"{'equal to' if same else 'DIFFERS from'} the engine's switch "
+          f"(#9) word for word; #6 after #7 "
+          f"{'equal to' if torch.equal(d76, d8) else 'DIFFERS from'} #8; "
+          f"launches {path}")
+    if not same or not torch.equal(d76, d8):
+        raise AssertionError(f"{label}: the switch core disagrees")
+    check_launches(label, path, ["mxu_ksk_accum", "mxu_ksk_accum_inv",
+                                 "mxu_ntt_inv", "mxu_switch_inv_mont"], rows)
+    time_and_profile(label, "switch", switch)
 
 
 def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
@@ -312,7 +447,8 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
     the fold."""
     import torch
 
-    from liberate_tpu_torch.fhe.engine import _ksk_shoup
+    from liberate_tpu_torch.fhe.engine import FUSED_SWITCH_MAX_LOGN, \
+        _ksk_shoup
     from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
 
     level = 1
@@ -349,6 +485,11 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
          (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True), k0, k1,
           pack_sp.plan, level, parts[0].part_id), {}),
     ]
+    if logN <= FUSED_SWITCH_MAX_LOGN:
+        butterfly.append(
+            ("ntt_mulacc", f"P={P} C={C_sp} level={level} (unsplit switch)",
+             (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True), k0, k1,
+              pack_sp.plan, level, parts[0].part_id), {}))
     kernels = {"ntt_fwd": (cuda_ntt.ntt_fwd, cuda_ntt.ntt_fwd_plain,
                            "liberate_tpu_torch/csrc/ntt.cu",
                            "liberate_tpu/ntt/pallas_ntt.py:534"),
@@ -357,7 +498,10 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
                            "liberate_tpu/ntt/pallas_ntt.py:577"),
                "ksk_mulacc": (cuda_ntt.ksk_mulacc, cuda_ntt.ksk_mulacc_plain,
                               "liberate_tpu_torch/csrc/ksk_mulacc.cu",
-                              "liberate_tpu/ntt/pallas_ntt.py:693")}
+                              "liberate_tpu/ntt/pallas_ntt.py:693"),
+               "ntt_mulacc": (cuda_ntt.ntt_mulacc, cuda_ntt.ntt_mulacc_plain,
+                              "liberate_tpu_torch/csrc/ntt_mulacc.cu",
+                              "liberate_tpu/ntt/pallas_ntt.py:614")}
     for name, label, args, kw in butterfly:
         fn, twin, src, replaces = kernels[name]
         library = None
@@ -379,6 +523,13 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
                     print(f"  torch.compile of the twin: "
                           f"{time.perf_counter() - t:.1f} s")
                     return cuda_ms(lambda: compiled(*args), 100)[0]
+        elif name == "ntt_mulacc":
+            # ext and both key halves read, twiddles and quotients once,
+            # d0 and d1 written; P forward transforms, 2P key products.
+            x = args[0]
+            b = bound(8 * (3 * x.numel() + 4 * C_sp * N),
+                      x.numel() // 2 * logN * SHOUP_MULS
+                      + 2 * x.numel() * MONT_MULS)
         else:
             x = args[0]
             B, cx = x.shape[0], x.shape[1]
@@ -431,6 +582,18 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
              mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R, mont=True),
              "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:588"),
         ]
+        ext = random_words(mpack_sp.q, (P, C_sp, N), gen, lazy=True)
+        for fold, name, line in ((False, "mxu_ksk_accum", 433),
+                                 (True, "mxu_ksk_accum_inv", 574)):
+            mxu_cases.append(
+                (name, f"P={P} C_sp={C_sp} level={level}, Montgomery-form "
+                 f"key, {'coefficient' if fold else 'NTT'}-domain out",
+                 lambda p, fold=fold: cuda_mxu.dispatch_ksk_accum(
+                     ext, k0, k1, mpack_sp.mxu, level, part_off,
+                     fold_inverse=fold, plain=p),
+                 mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R, mont=True,
+                                 from_ext=True, inverse=fold),
+                 "mxu_switch.cu", f"liberate_tpu/ntt/mxu_pallas.py:{line}"))
     else:
         mxu_cases.append(
             ("mxu_switch_inv", f"P={P} C_sp={C_sp} A={A} level={level}, "
@@ -489,11 +652,15 @@ def main():
     print(f"build: {time.perf_counter() - t:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
     for name, p in libs.items():
+        # One line per kernel: its (mangled) entry and ptxas's registers.
         log = p.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "Compiling entry" in line:
-                    print(f"  ptxas[{name}] {line.strip()}")
+        entry = None
+        for line in (log.read_text().splitlines() if log.exists() else ()):
+            if "Compiling entry" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line and entry:
+                print(f"  ptxas[{name}] {entry}: "
+                      f"{line.split(':', 1)[1].strip()}")
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -537,11 +704,12 @@ def main():
                      opts.compile_yardstick and preset == "silver")
 
     # -- 5. the path at logN 8: card against the CPU twins -----------------------
-    for kw in (dict(use_mxu_ntt=False), dict(use_mxu_ntt=True),
-               dict(use_mxu_ntt=True, use_shoup_ksk=False)):
-        domain = ("butterfly" if not kw["use_mxu_ntt"] else
-                  "MXU" if kw.get("use_shoup_ksk", True) else
-                  "MXU Montgomery-key")
+    for domain, kw in (
+            ("butterfly", dict(use_mxu_ntt=False)),
+            ("butterfly unsplit", dict(use_split_switch=False)),
+            ("MXU", dict(use_mxu_ntt=True)),
+            ("MXU Montgomery-key", dict(use_mxu_ntt=True,
+                                        use_shoup_ksk=False))):
         outs = []
         for device in ("cuda:0", "cpu"):
             e = liberate_tpu_torch.CkksEngine(device=device, **kw, **SMALL)
@@ -571,12 +739,22 @@ def main():
     eng_mont = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED, use_mxu_ntt=True,
         use_shoup_ksk=False)
-    drive_path(eng_mont, "silver MXU Montgomery-key", rows)
-    del eng, eng_mxu, eng_mont, engines["silver"]
+    _, _, evk_mont = drive_path(eng_mont, "silver MXU Montgomery-key", rows)
+    switch_core_path(eng_mont, evk_mont, gen, "silver MXU switch core", rows)
+    eng_unsplit = liberate_tpu_torch.CkksEngine(
+        **liberate_tpu_torch.params["silver"], seed=SEED,
+        use_split_switch=False)
+    keys = drive_path(eng_unsplit, "silver butterfly unsplit", rows,
+                      per_mult=dict(ntt_fwd=1, ntt_mulacc=1, ntt_inv=2,
+                                    ksk_mulacc=0))
+    standalone_switch_path(eng_unsplit, keys, "silver standalone switch",
+                           rows)
+    del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, keys, engines["silver"]
     eng, eng_mxu = engines["gold"]
     drive_path(eng, "gold butterfly", rows)
     drive_path(eng_mxu, "gold MXU", rows)
 
+    print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

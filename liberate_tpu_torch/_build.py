@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"ntt": "ntt.cu", "ksk_mulacc": "ksk_mulacc.cu",
-           "mxu_ntt": "mxu_ntt.cu", "mxu_switch": "mxu_switch.cu"}
+           "ntt_mulacc": "ntt_mulacc.cu", "mxu_ntt": "mxu_ntt.cu",
+           "mxu_switch": "mxu_switch.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

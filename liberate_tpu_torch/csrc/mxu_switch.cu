@@ -1,6 +1,7 @@
 // The key switch of one width group on the tensor-core NTT: with the
 // special-prime mod-down folded in (ltt_mxu_switch), or without it
-// (ltt_mxu_switch_inv).
+// (ltt_mxu_switch_inv), and its core from extension words that the caller
+// gives (ltt_mxu_ksk_accum).
 //
 // Replaces, ltt_mxu_switch: liberate_tpu/ntt/mxu_pallas.py
 // `_make_md_kernel` (:815, body :839), launched per width group by
@@ -18,6 +19,14 @@
 // `ksk_accum_from_state` (:994) from `dispatch_ksk_from_state` (:1179-1203)
 // when the mod-down is not folded (logN 16 and up, or a Montgomery-form
 // key). Its output goes through the engine's separate Shoup mod-down.
+//
+// Replaces, ltt_mxu_ksk_accum: `_mulacc_inv_kernel` (:574, body
+// `_mulacc_inv_tail` :490, launched by `_ksk_accum_inv_call` :721) with
+// fold_inverse, and `_mulacc_kernel` (:433, launched by `ntt_ksk_accum`
+// :679) without, both per width group from `dispatch_ksk_accum` (:350),
+// Montgomery-form key only (the Pallas kernels have no working Shoup-key
+// branch): launches 2-5, or 2-3 with the key sums as the output in the
+// natural-order NTT domain ([R(k1), S(k2)], as mxu_ntt.ntt orders it).
 //
 // Per (channel, part) both compute the Shoup basis extension of the part's
 // raw divided-difference state, the forward four-step transform, both key
@@ -127,32 +136,29 @@ __global__ void fold(u64* r, long long r_sh, int C, int N, int n_sp,
   }
 }
 
-// Launches 1-5. mont: Montgomery-form key stacks (k0w, k1w; the quotient
+// Launches 2-5 (2-3 without ``inverse``) on the extension words ext
+// [P][C][N], element strides (ext_sp, ext_sc, 1), below 2^(8 d): stage 1 of
+// the forward transform of every part, stage 2 with both key products
+// summed over the parts into acc [2][C][N] (strides (acc_sh, N, 1),
+// natural-order NTT domain [0, 2q)), and with ``inverse`` the two inverse
+// stages of both sums into out (strides (out_sh, N, 1)), reduced to
+// [0, q). mont: Montgomery-form key stacks (k0w, k1w; the quotient
 // pointers are unused), else Shoup-form pairs.
-int switch_core(int d, int mont, const void* st, int P, int A,
-                const void* terms, int nterms, int ldc, const void* off0,
-                const void* k0w, const void* k0wp, const void* k1w,
-                const void* k1wp, long long k_sp, long long k_sc, void* ext,
-                void* inter1, void* acc, void* inter2, void* out,
-                long long out_sh, int C, int logN, const void* m1,
-                const void* r1, const void* tw, const void* m2,
-                const void* r2, const void* i1, const void* ir1,
-                const void* itw, const void* i2, const void* ir2,
-                const void* q, const void* k, const void* bp,
-                const void* whi, const void* wphi, const void* corr,
-                cudaStream_t s) {
+int accum_core(int d, int mont, int inverse, const void* ext,
+               long long ext_sp, long long ext_sc, int P, const void* k0w,
+               const void* k0wp, const void* k1w, const void* k1wp,
+               long long k_sp, long long k_sc, void* inter1, void* acc,
+               long long acc_sh, void* inter2, void* out, long long out_sh,
+               int C, int logN, const void* m1, const void* r1,
+               const void* tw, const void* m2, const void* r2,
+               const void* i1, const void* ir1, const void* itw,
+               const void* i2, const void* ir2, const void* q, const void* k,
+               const void* bp, const void* whi, const void* wphi,
+               const void* corr, cudaStream_t s) {
   const int N = 1 << logN;
   const int S = 1 << ((logN + 1) / 2);
   const int R = N / S;
   const long long CN = (long long)C * N;
-
-  // 1. the extension of every part
-  extend<<<dim3((unsigned)((N + kThreads - 1) / kThreads), C, P), kThreads,
-           0, s>>>((const u64*)st, A, N, (const u64*)terms, nterms, ldc,
-                   (const u64*)off0, (const u64*)q, (const u64*)bp,
-                   (u64*)ext);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
 
   // 2. forward stage 1 of every part
   Stage a = mxu::shape(S, S, R, N);
@@ -163,8 +169,8 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   a.wphi = (const u64*)wphi;
   a.corr = (const u64*)corr;
   a.x = (const u64*)ext;
-  a.x_sb = CN;
-  a.x_sc = N;
+  a.x_sb = ext_sp;
+  a.x_sc = ext_sc;
   a.y = (u64*)inter1;
   a.y_sb = CN;
   a.y_sc = N;
@@ -172,7 +178,7 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   a.rs = (const int*)r1;
   a.tw = (const u64*)tw;
   a.tw_t = 0;
-  rc = mxu::launch<mxu::kRows, mxu::kTwiddle>(d, a, P, C, s);
+  int rc = mxu::launch<mxu::kRows, mxu::kTwiddle>(d, a, P, C, s);
   if (rc != 0) return rc;
 
   // 3. forward stage 2, both key products summed over the parts
@@ -183,7 +189,7 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   b.x_sb = CN;
   b.x_sc = N;
   b.y = (u64*)acc;
-  b.y_sb = CN;
+  b.y_sb = acc_sh;
   b.y_sc = N;
   b.table = (const int8_t*)m2;
   b.rs = (const int*)r2;
@@ -197,7 +203,7 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   b.P = P;
   rc = mont ? mxu::launch<mxu::kCols, mxu::kKskMont>(d, b, 1, C, s)
             : mxu::launch<mxu::kCols, mxu::kKsk>(d, b, 1, C, s);
-  if (rc != 0) return rc;
+  if (rc != 0 || !inverse) return rc;
 
   // 4. inverse stage 1 of both sums
   Stage c = mxu::shape(R, R, S, N);
@@ -208,7 +214,7 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   c.wphi = a.wphi;
   c.corr = a.corr;
   c.x = (const u64*)acc;
-  c.x_sb = CN;
+  c.x_sb = acc_sh;
   c.x_sc = N;
   c.y = (u64*)inter2;
   c.y_sb = CN;
@@ -225,6 +231,7 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   e.O = e.K = S;
   e.J = R;
   e.x = (const u64*)inter2;
+  e.x_sb = CN;
   e.y = (u64*)out;
   e.y_sb = out_sh;
   e.table = (const int8_t*)i2;
@@ -232,6 +239,36 @@ int switch_core(int d, int mont, const void* st, int P, int A,
   e.tw = nullptr;
   e.post_reduce = 1;
   return mxu::launch<mxu::kCols, mxu::kOut>(d, e, 2, C, s);
+}
+
+// Launches 1-5: the extension of every part into ext [P, C, N], then
+// accum_core with the inverse.
+int switch_core(int d, int mont, const void* st, int P, int A,
+                const void* terms, int nterms, int ldc, const void* off0,
+                const void* k0w, const void* k0wp, const void* k1w,
+                const void* k1wp, long long k_sp, long long k_sc, void* ext,
+                void* inter1, void* acc, void* inter2, void* out,
+                long long out_sh, int C, int logN, const void* m1,
+                const void* r1, const void* tw, const void* m2,
+                const void* r2, const void* i1, const void* ir1,
+                const void* itw, const void* i2, const void* ir2,
+                const void* q, const void* k, const void* bp,
+                const void* whi, const void* wphi, const void* corr,
+                cudaStream_t s) {
+  const int N = 1 << logN;
+  const long long CN = (long long)C * N;
+
+  // 1. the extension of every part
+  extend<<<dim3((unsigned)((N + kThreads - 1) / kThreads), C, P), kThreads,
+           0, s>>>((const u64*)st, A, N, (const u64*)terms, nterms, ldc,
+                   (const u64*)off0, (const u64*)q, (const u64*)bp,
+                   (u64*)ext);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return accum_core(d, mont, 1, ext, CN, N, P, k0w, k0wp, k1w, k1wp, k_sp,
+                    k_sc, inter1, acc, CN, inter2, out, out_sh, C, logN, m1,
+                    r1, tw, m2, r2, i1, ir1, itw, i2, ir2, q, k, bp, whi,
+                    wphi, corr, s);
 }
 
 }  // namespace
@@ -288,4 +325,29 @@ extern "C" int ltt_mxu_switch_inv(
                      k1w, k1wp, k_sp, k_sc, ext, inter1, acc, inter2, out,
                      out_sh, C, logN, m1, r1, tw, m2, r2, i1, ir1, itw, i2,
                      ir2, q, k, bp, whi, wphi, corr, (cudaStream_t)stream);
+}
+
+// The switch from extension words: ext [P][C][N] in [0, 2q) with element
+// strides (ext_sp, ext_sc, 1), Montgomery-form key stacks k0, k1 at
+// (part_off, first key channel) with strides (k_sp, k_sc, 1). With
+// fold_inverse, launches 2-5 into out [2][C][N] (strides (out_sh, N, 1)),
+// coefficient domain [0, q); without, launches 2-3 with the key sums
+// written to out, natural-order NTT domain [0, 2q) (acc and inter2 are
+// then unused). inter1: scratch [P, C, N]; acc, inter2: scratch [2, C, N].
+extern "C" int ltt_mxu_ksk_accum(
+    int d, int fold_inverse, const void* ext, long long ext_sp,
+    long long ext_sc, int P, const void* k0, const void* k1, long long k_sp,
+    long long k_sc, void* inter1, void* acc, void* inter2, void* out,
+    long long out_sh, int C, int logN, const void* m1, const void* r1,
+    const void* tw, const void* m2, const void* r2, const void* i1,
+    const void* ir1, const void* itw, const void* i2, const void* ir2,
+    const void* q, const void* k, const void* bp, const void* whi,
+    const void* wphi, const void* corr, void* stream) {
+  const long long CN = (long long)C << logN;
+  return accum_core(d, 1, fold_inverse, ext, ext_sp, ext_sc, P, k0, nullptr,
+                    k1, nullptr, k_sp, k_sc, inter1,
+                    fold_inverse ? acc : out, fold_inverse ? CN : out_sh,
+                    inter2, out, out_sh, C, logN, m1, r1, tw, m2, r2, i1,
+                    ir1, itw, i2, ir2, q, k, bp, whi, wphi, corr,
+                    (cudaStream_t)stream);
 }

@@ -24,67 +24,18 @@
 // shared memory. Silver is therefore two launches per transform. The
 // optional Shoup multiply by R mod q (forward entry), by N^-1 or N^-1 R^-1
 // (inverse exit) and the final reduce to [0, q) are folded into the first
-// or last launch.
-#include <cuda_runtime.h>
-
-#include "modarith.cuh"
+// or last launch. The forward stages are in ntt.cuh, shared with the
+// unsplit switch core (ntt_mulacc.cu).
+#include "ntt.cuh"
 
 namespace {
 
-constexpr int kLogTile = 12;
-constexpr int kRegThreads = 256;
-constexpr int kSmemThreads = 512;
+using bfly::kRegThreads;
+using bfly::regs_grid;
+using bfly::tile_log;
+using bfly::tile_threads;
 
 __device__ __forceinline__ u64 reduce_q(u64 v, u64 q) { return csub(v, q); }
-
-// Forward stages s0 .. s0+LOGR-1. At stage s0 the data is 2^s0 independent
-// blocks of L = N >> s0 words; thread (g, j) holds words g*L + j + k*(L/R).
-template <int LOGR>
-__global__ void fwd_regs(const u64* in, long long in_sb, long long in_sc,
-                         u64* out, int logN, int s0,
-                         const u64* __restrict__ w, const u64* __restrict__ wp,
-                         const u64* __restrict__ qv,
-                         const u64* __restrict__ ew,
-                         const u64* __restrict__ ewp) {
-  constexpr int R = 1 << LOGR;
-  const int c = blockIdx.y, b = blockIdx.z, C = gridDim.y;
-  const long long N = 1LL << logN;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (N >> LOGR)) return;
-  const int logS = logN - s0 - LOGR;
-  const long long S = 1LL << logS;
-  const long long g = idx >> logS;
-  const long long base = (g << (logN - s0)) + (idx & (S - 1));
-  const u64 q = qv[c], q2 = 2 * q;
-  const u64* src = in + b * in_sb + c * in_sc;
-  u64* dst = out + ((long long)b * C + c) * N;
-  const u64* wc = w + c * N;
-  const u64* wpc = wp + c * N;
-
-  u64 x[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) x[k] = src[base + k * S];
-  if (ew != nullptr) {
-    const u64 a = ew[c], ap = ewp[c];
-#pragma unroll
-    for (int k = 0; k < R; ++k) x[k] = shoup_mul(x[k], a, ap, q);
-  }
-#pragma unroll
-  for (int i = 0; i < LOGR; ++i) {
-    const int half = R >> (i + 1);
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      if (k & half) continue;
-      const long long tw = (1LL << (s0 + i)) + (g << i) + (k >> (LOGR - i));
-      const u64 U = x[k];
-      const u64 V = shoup_mul(x[k + half], wc[tw], wpc[tw], q);
-      x[k] = csub(U + V, q2);
-      x[k + half] = csub(U + q2 - V, q2);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < R; ++k) dst[base + k * S] = x[k];
-}
 
 // Inverse stages s0+LOGR-1 down to s0, same thread layout as fwd_regs.
 // nw/nwp (the N^-1 normalisation) are given only to the last launch.
@@ -146,8 +97,8 @@ __global__ void fwd_smem(const u64* in, long long in_sb, long long in_sc,
   extern __shared__ u64 sh[];
   const int g = blockIdx.x, c = blockIdx.y, b = blockIdx.z, C = gridDim.y;
   const long long N = 1LL << logN;
-  const int L = 1 << logL, s0 = logN - logL;
-  const u64 q = qv[c], q2 = 2 * q;
+  const int L = 1 << logL;
+  const u64 q = qv[c];
   const u64* src = in + b * in_sb + c * in_sc + (long long)g * L;
   u64* dst = out + ((long long)b * C + c) * N + (long long)g * L;
   const u64* wc = w + c * N;
@@ -158,21 +109,7 @@ __global__ void fwd_smem(const u64* in, long long in_sb, long long in_sc,
     if (ew != nullptr) v = shoup_mul(v, ew[c], ewp[c], q);
     sh[i] = v;
   }
-  for (int i = 0; i < logL; ++i) {
-    __syncthreads();
-    const int logt = logL - i - 1, t = 1 << logt;
-    const long long twbase = (1LL << (s0 + i)) + ((long long)g << i);
-    for (int j = threadIdx.x; j < L / 2; j += blockDim.x) {
-      const int blk = j >> logt;
-      const int u = (blk << (logt + 1)) + (j & (t - 1));
-      const long long tw = twbase + blk;
-      const u64 U = sh[u];
-      const u64 V = shoup_mul(sh[u + t], wc[tw], wpc[tw], q);
-      sh[u] = csub(U + V, q2);
-      sh[u + t] = csub(U + q2 - V, q2);
-    }
-  }
-  __syncthreads();
+  bfly::fwd_tile(sh, logN, logL, g, wc, wpc, q);
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
     u64 v = sh[i];
     if (post_reduce) v = reduce_q(v, q);
@@ -223,26 +160,6 @@ __global__ void inv_smem(const u64* in, long long in_sb, long long in_sc,
   }
 }
 
-int launch_fwd_regs(int r, dim3 grid, cudaStream_t st, const u64* in,
-                    long long sb, long long sc, u64* out, int logN, int s0,
-                    const u64* w, const u64* wp, const u64* q, const u64* ew,
-                    const u64* ewp) {
-  switch (r) {
-    case 1:
-      fwd_regs<1><<<grid, kRegThreads, 0, st>>>(in, sb, sc, out, logN, s0, w,
-                                                wp, q, ew, ewp);
-      break;
-    case 2:
-      fwd_regs<2><<<grid, kRegThreads, 0, st>>>(in, sb, sc, out, logN, s0, w,
-                                                wp, q, ew, ewp);
-      break;
-    default:
-      fwd_regs<3><<<grid, kRegThreads, 0, st>>>(in, sb, sc, out, logN, s0, w,
-                                                wp, q, ew, ewp);
-  }
-  return (int)cudaGetLastError();
-}
-
 int launch_inv_regs(int r, dim3 grid, cudaStream_t st, u64* data, int logN,
                     int s0, const u64* w, const u64* wp, const u64* q,
                     const u64* nw, const u64* nwp, int post_reduce) {
@@ -262,11 +179,6 @@ int launch_inv_regs(int r, dim3 grid, cudaStream_t st, u64* data, int logN,
   return (int)cudaGetLastError();
 }
 
-dim3 regs_grid(int logN, int r, int C, int B) {
-  const long long threads = 1LL << (logN - r);
-  return dim3((unsigned)((threads + kRegThreads - 1) / kRegThreads), C, B);
-}
-
 }  // namespace
 
 // x: [B, C, N] with element strides (sb, sc, 1). y: contiguous [B, C, N].
@@ -277,28 +189,17 @@ extern "C" int ltt_ntt_fwd(const void* x, long long sb, long long sc, void* y,
                            const void* wp, const void* q, const void* ew,
                            const void* ewp, int post_reduce, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int logL = logN < kLogTile ? logN : kLogTile;
-  const int s_top = logN - logL;
+  const int logL = tile_log(logN);
   const u64* src = (const u64*)x;
   u64* out = (u64*)y;
   const u64* enter_w = (const u64*)ew;
   const u64* enter_wp = (const u64*)ewp;
-  for (int s0 = 0; s0 < s_top;) {
-    const int r = (s_top - s0) < 3 ? (s_top - s0) : 3;
-    const int rc = launch_fwd_regs(r, regs_grid(logN, r, C, B), st, src, sb,
-                                   sc, out, logN, s0, (const u64*)w,
-                                   (const u64*)wp, (const u64*)q, enter_w,
-                                   enter_wp);
-    if (rc != 0) return rc;
-    src = out;
-    sb = (long long)C << logN;
-    sc = 1LL << logN;
-    enter_w = enter_wp = nullptr;
-    s0 += r;
-  }
-  const int threads = (1 << logL) / 2 < kSmemThreads ? (1 << logL) / 2
-                                                      : kSmemThreads;
-  fwd_smem<<<dim3(1u << s_top, C, B), threads, sizeof(u64) << logL, st>>>(
+  const int rc = bfly::fwd_top(src, sb, sc, out, B, C, logN, (const u64*)w,
+                               (const u64*)wp, (const u64*)q, enter_w,
+                               enter_wp, st);
+  if (rc != 0) return rc;
+  fwd_smem<<<dim3(1u << (logN - logL), C, B), tile_threads(logL),
+             sizeof(u64) << logL, st>>>(
       src, sb, sc, out, logN, logL, (const u64*)w, (const u64*)wp,
       (const u64*)q, enter_w, enter_wp, post_reduce);
   return (int)cudaGetLastError();
@@ -311,13 +212,12 @@ extern "C" int ltt_ntt_inv(const void* x, long long sb, long long sc, void* y,
                            const void* wp, const void* q, const void* nw,
                            const void* nwp, int post_reduce, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int logL = logN < kLogTile ? logN : kLogTile;
+  const int logL = tile_log(logN);
   const int s_top = logN - logL;
   u64* out = (u64*)y;
-  const int threads = (1 << logL) / 2 < kSmemThreads ? (1 << logL) / 2
-                                                      : kSmemThreads;
   const bool last = s_top == 0;
-  inv_smem<<<dim3(1u << s_top, C, B), threads, sizeof(u64) << logL, st>>>(
+  inv_smem<<<dim3(1u << s_top, C, B), tile_threads(logL), sizeof(u64) << logL,
+             st>>>(
       (const u64*)x, sb, sc, out, logN, logL, (const u64*)w, (const u64*)wp,
       (const u64*)q, last ? (const u64*)nw : nullptr,
       last ? (const u64*)nwp : nullptr, post_reduce);

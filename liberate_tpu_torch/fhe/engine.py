@@ -1,4 +1,5 @@
-"""The CKKS engine on PyTorch: keys, encryption, and the ct x ct multiply.
+"""The CKKS engine on PyTorch: keys, encryption, the ct x ct multiply and
+its key switch (relinearize, square, switch_key).
 
 A polynomial is one int64 tensor [C, N] of 62-bit words on the engine's
 device. Level/layout convention: the global prime order is
@@ -12,7 +13,9 @@ and Shoup-form chains: four rescales, the products in the NTT domain
 switch (basis extension, forward transform, key multiply-accumulate over
 gadget parts, inverse transform, special-prime mod-down). Rescale,
 extension and mod-down are plain torch ops; the transforms and the key
-multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``.
+multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``: by default
+the forward transform then ``ksk_mulacc``, with ``use_split_switch=False``
+both in one ``ntt_mulacc`` kernel (``butterfly_switch_route``).
 
 With ``use_mxu_ntt=True`` (the JAX package's ``config.use_mxu_ntt`` path
 for its accelerator) every transform runs in the tensor-core kernels of
@@ -91,6 +94,18 @@ def _decrypt_double_pt(ct0, ct1, sk, level, pack):
     return ops.reduce_2q(ops.mont_add(ct0, sa, pack), pack)
 
 
+def _decrypt_triplet_pt(d0, d1, d2, sk, level, pack):
+    """pt = d0 + d1*sk + d2*sk^2 from an NTT+Montgomery-domain triplet."""
+    sk = ops.fit_channels(sk[level:], pack.q.shape[0])
+    d0_p = ops.intt_exit_reduce(d0, pack)
+    d1_s = ops.intt_exit(ops.mont_mult(d1, sk, pack), pack)
+    s2 = ops.mont_mult(sk, sk, pack)
+    d2_s2 = ops.intt_exit(ops.mont_mult(d2, s2, pack), pack)
+    pt = ops.mont_add(d0_p, d1_s, pack)
+    pt = ops.mont_add(pt, d2_s2, pack)
+    return ops.reduce_2q(pt, pack)
+
+
 def _gt_unsigned(a, b):
     return ~u64.lt_unsigned(a, b) & (a != b)
 
@@ -160,6 +175,17 @@ def _cc_mult_core(x0, x1, y0, y1, pack):
     return d0, d1, d2
 
 
+def _square_core(x0, x1, pack):
+    """(d0, d1, d2) = (x0^2, 2 x0x1, x1^2) in the NTT domain, with one B=2
+    enter+transform."""
+    x0, x1 = ops.enter_ntt(torch.stack([x0, x1]), pack)
+    d0 = ops.mont_mult(x0, x0, pack)
+    x0x1 = ops.mont_mult(x0, x1, pack)
+    d1 = ops.mont_add(x0x1, x0x1, pack)
+    d2 = ops.mont_mult(x1, x1, pack)
+    return d0, d1, d2
+
+
 def _relin_pre(d0, d1, d2, pack):
     """The B=3 inverse transform with Montgomery exit and reduce."""
     return ops.intt_exit_reduce(torch.stack([d0, d1, d2]), pack)
@@ -214,6 +240,25 @@ def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
     return acc
 
 
+# The largest logN at which the butterfly switch runs its unsplit core (#4,
+# ``ntt_mulacc``) when the engine does not split it, as the JAX engine
+# does (``pallas_ntt.supports_fused_accum``: its single kernel holds a
+# whole channel in VMEM up to N / 128 = SPLIT_ROWS rows).
+FUSED_SWITCH_MAX_LOGN = 15
+
+
+def butterfly_switch_route(logN, split):
+    """The butterfly switch core the JAX engine runs at this logN and
+    ``use_split_switch``: ``split`` (the forward NTT of the parts, then
+    ``ksk_mulacc``), ``fused`` (``ntt_mulacc``: both in one kernel; logN <=
+    FUSED_SWITCH_MAX_LOGN) or ``composed`` (the forward NTT, then the key
+    products and the sum over the parts as torch ops, where the JAX engine
+    composes them in XLA)."""
+    if split:
+        return "split"
+    return "fused" if logN <= FUSED_SWITCH_MAX_LOGN else "composed"
+
+
 # The largest logN at which the tensor-core switch folds the special-prime
 # mod-down into its kernels, as the JAX engine does (its fold kernel
 # overflows the TPU's scoped VMEM at logN 16).
@@ -241,7 +286,8 @@ def _ksk_shoup(k, pack):
 @errors.log_error
 class CkksEngine:
     """The user-facing CKKS engine (this slice: keys, encode/encrypt,
-    ct x ct multiply with relinearisation and rescale, decrypt/decode).
+    ct x ct multiply and square with or without relinearisation,
+    relinearize, switch_key, decrypt/decode of ciphertexts and triplets).
 
     ``device``: where every tensor lives; ``None`` means ``cuda:0`` and
     raises when no CUDA device is present. ``device="cpu"`` runs the
@@ -252,13 +298,18 @@ class CkksEngine:
     ``use_shoup_ksk`` (tensor-core domain only, as the JAX package's
     ``config.use_shoup_ksk``): keep the key stacks in Shoup form (value and
     quotient); else in Montgomery form, and the switch never folds the
-    mod-down.
+    mod-down. ``use_split_switch`` (butterfly domain only, as the JAX
+    package's ``config.use_split_switch``): run the switch core as the
+    forward NTT then ``ksk_mulacc``; else as one ``ntt_mulacc`` kernel up
+    to FUSED_SWITCH_MAX_LOGN and composed above it
+    (``butterfly_switch_route``). All routes give the same words.
     """
 
     def __init__(self, device=None, verbose: bool = False,
                  bias_guard: bool = True, norm: str = "forward",
                  seed=None, mesh_shape=None, use_mxu_ntt: bool = False,
-                 use_shoup_ksk: bool = True, **ctx_params):
+                 use_shoup_ksk: bool = True, use_split_switch: bool = True,
+                 **ctx_params):
         if mesh_shape not in (None, 1):
             raise ValueError("the port runs on one device (mesh_shape=None)")
         self.device = resolve_device(device)
@@ -267,6 +318,7 @@ class CkksEngine:
         self.version = VERSION
         self.use_mxu_ntt = bool(use_mxu_ntt)
         self.use_shoup_ksk = bool(use_shoup_ksk)
+        self.use_split_switch = bool(use_split_switch)
 
         self.ctx = CkksContext(verbose=verbose, **ctx_params)
         self.ntt = NttContext(self.ctx, self.device, use_mxu=self.use_mxu_ntt)
@@ -527,13 +579,20 @@ class CkksEngine:
                           types.origins["ct"], level, self.hash)
 
     def _decrypt_pt(self, ct: DataStruct, sk: DataStruct):
-        """Raw decryption to the plaintext RNS poly (no final rescale)."""
-        if ct.origin != types.origins["ct"]:
-            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
-        if ct.ntt_state or ct.montgomery_state:
-            raise errors.NotMatchDataStructState(origin=ct.origin)
-        return _decrypt_double_pt(ct.data[0], ct.data[1], sk.data, ct.level,
-                                  self.pack(ct.level, -1))
+        """Raw decryption of a ciphertext (plain domain) or a triplet (NTT
+        and Montgomery domain) to the plaintext RNS poly (no final
+        rescale)."""
+        pack = self.pack(ct.level, -1)
+        if ct.origin == types.origins["ct"]:
+            if ct.ntt_state or ct.montgomery_state:
+                raise errors.NotMatchDataStructState(origin=ct.origin)
+            return _decrypt_double_pt(ct.data[0], ct.data[1], sk.data,
+                                      ct.level, pack)
+        if ct.origin == types.origins["ctt"]:
+            if not ct.ntt_state or not ct.montgomery_state:
+                raise errors.NotMatchDataStructState(origin=ct.origin)
+            return _decrypt_triplet_pt(*ct.data, sk.data, ct.level, pack)
+        raise errors.NotMatchType(origin=ct.origin, to="ct or ctt")
 
     def _final_rescale_signed(self, pt, level, final_round=True):
         rh = (self.round_halves[level] if final_round
@@ -549,6 +608,15 @@ class CkksEngine:
             raise errors.NotMatchDataStructState(origin=sk.origin)
         pt = self._decrypt_pt(ct, sk)
         return self._final_rescale_signed(pt, ct.level, final_round)
+
+    def decrypt_triplet(self, ct_mult: DataStruct, sk: DataStruct,
+                        final_round=True):
+        """Decrypt a triplet (``cc_mult(relin=False)``, ``square(relin=
+        False)``) to the signed base-prime plaintext poly [1, N]."""
+        if ct_mult.origin != types.origins["ctt"]:
+            raise errors.NotMatchType(origin=ct_mult.origin,
+                                      to=types.origins["ctt"])
+        return self.decrypt(ct_mult, sk, final_round=final_round)
 
     def encodecrypt(self, m, pk: DataStruct, level: int = 0,
                     padding=True) -> DataStruct:
@@ -634,7 +702,8 @@ class CkksEngine:
 
     def _switch(self, a, ksk: DataStruct, level: int):
         """Key-switch a [C_ord, N] (plain [0, q), coefficient domain):
-        returns (d0, d1) over the ordinary channels in [0, q)."""
+        returns (d0, d1) over the ordinary channels in [0, q). The
+        butterfly switch core takes ``butterfly_switch_route``."""
         if self.use_mxu_ntt:
             return self._switch_mxu(a, ksk, level)
         parts = self.ntt.parts(level)
@@ -644,8 +713,25 @@ class CkksEngine:
                           p.L_enter_sh, pack_sp, self.bp_sp[level], level)
             for p in parts])                              # [P, C_sp, N]
         k0, k1 = self._ksk_stacked(ksk)
-        d0, d1 = cuda_ntt.ksk_mulacc(ops.ntt(ext, pack_sp), k0, k1,
-                                     pack_sp.plan, level, parts[0].part_id)
+        part_off = parts[0].part_id
+        route = butterfly_switch_route(self.ctx.logN, self.use_split_switch)
+        if route == "fused":
+            d0, d1 = cuda_ntt.ntt_mulacc(ext, k0, k1, pack_sp.plan, level,
+                                         part_off)
+        elif route == "split":
+            d0, d1 = cuda_ntt.ksk_mulacc(ops.ntt(ext, pack_sp), k0, k1,
+                                         pack_sp.plan, level, part_off)
+        else:
+            P, C_sp = len(parts), pack_sp.q.shape[0]
+            ext = ops.ntt(ext, pack_sp)
+            t0 = ops.mont_mult(ext, k0[part_off:part_off + P,
+                                       level:level + C_sp], pack_sp)
+            t1 = ops.mont_mult(ext, k1[part_off:part_off + P,
+                                       level:level + C_sp], pack_sp)
+            d0, d1 = t0[0], t1[0]
+            for p in range(1, P):
+                d0 = ops.mont_add(d0, t0[p], pack_sp)
+                d1 = ops.mont_add(d1, t1[p], pack_sp)
         d = ops.intt_reduce(torch.stack([d0, d1]), pack_sp)
         return _mod_down_shoup(d, pack_sp, self.pack(level, -1),
                                self.PiWs[level], self.bp_sp[level][0],
@@ -717,12 +803,52 @@ class CkksEngine:
         return DataStruct((c[0], c[1]), False, False, False,
                           types.origins["ct"], level + 1, self.hash)
 
+    def switch_key(self, ct: DataStruct, ksk: DataStruct) -> DataStruct:
+        """Switch a plain-domain ciphertext to the key ``ksk`` carries it to
+        (``create_key_switching_key(sk_from, sk_to)``: ct under sk_from in,
+        under sk_to out)."""
+        if ct.origin != types.origins["ct"]:
+            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
+        if ct.ntt_state or ct.montgomery_state:
+            raise errors.NotMatchDataStructState(origin=ct.origin)
+        level = ct.level
+        d0, d1 = self._switch(ct.data[1], ksk, level)
+        pack = self.pack(level, -1)
+        ct0 = ops.reduce_2q(ops.mont_add(ct.data[0], d0, pack), pack)
+        return DataStruct((ct0, d1), ct.include_special, ct.ntt_state,
+                          ct.montgomery_state, types.origins["ct"], level,
+                          self.hash)
+
+    def relinearize(self, ct_triplet: DataStruct,
+                    evk: DataStruct) -> DataStruct:
+        """Triplet -> ciphertext at the same level: the B=3 inverse
+        transform, then the key switch of d2."""
+        if ct_triplet.origin != types.origins["ctt"]:
+            raise errors.NotMatchType(origin=ct_triplet.origin,
+                                      to=types.origins["ctt"])
+        level = ct_triplet.level
+        pack = self.pack(level, -1)
+        d0, d1, d2 = _relin_pre(*ct_triplet.data, pack)
+        s0, s1 = self._switch(d2, evk, level)
+        c0, c1 = _relin_post(d0, d1, s0, s1, pack)
+        return DataStruct((c0, c1), False, False, False,
+                          types.origins["ct"], level, self.hash)
+
+    def square(self, ct: DataStruct, evk: DataStruct,
+               relin=True) -> DataStruct:
+        """ct x ct of one ciphertext with itself: the rescale, the products
+        (one B=2 transform) and, with ``relin``, the relinearisation."""
+        x = self.rescale(ct)
+        pack = self.pack(x.level, -1)
+        ct_mult = DataStruct(_square_core(*x.data, pack), False, True, True,
+                             types.origins["ctt"], x.level, self.hash)
+        return self.relinearize(ct_mult, evk) if relin else ct_mult
+
     def cc_mult(self, a: DataStruct, b: DataStruct, evk: DataStruct,
                 relin=True) -> DataStruct:
-        """ct x ct multiply with relinearisation and the input rescales;
-        the result sits one level deeper."""
-        if not relin:
-            raise NotImplementedError("the port multiplies with relin only")
+        """ct x ct multiply with the input rescales; the result sits one
+        level deeper: a ciphertext with ``relin``, else the NTT- and
+        Montgomery-domain triplet."""
         for ct in (a, b):
             if ct.origin != types.origins["ct"]:
                 raise errors.NotMatchType(origin=ct.origin,
@@ -738,12 +864,9 @@ class CkksEngine:
         x0, x1, y0, y1 = _rescale_core_shoup(
             torch.stack([*a.data, *b.data]), self.rescale_sh[level],
             self.bp_ord[level], self.round_halves[level], pack)
-        d0, d1, d2 = _cc_mult_core(x0, x1, y0, y1, pack)
-        d0, d1, d2 = _relin_pre(d0, d1, d2, pack)
-        s0, s1 = self._switch(d2, evk, nxt)
-        c0, c1 = _relin_post(d0, d1, s0, s1, pack)
-        return DataStruct((c0, c1), False, False, False,
-                          types.origins["ct"], nxt, self.hash)
+        ct_mult = DataStruct(_cc_mult_core(x0, x1, y0, y1, pack), False,
+                             True, True, types.origins["ctt"], nxt, self.hash)
+        return self.relinearize(ct_mult, evk) if relin else ct_mult
 
     def level_up(self, ct: DataStruct, dst_level: int) -> DataStruct:
         if ct.origin != types.origins["ct"]:

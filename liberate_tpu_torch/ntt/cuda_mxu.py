@@ -1,7 +1,7 @@
 """The tensor-core ("MXU") kernels: CUDA wrappers, their plain PyTorch twins
 and their launch counters.
 
-Four kernels (sources in ``liberate_tpu_torch/csrc``):
+Six kernels (sources in ``liberate_tpu_torch/csrc``):
 
 - ``mxu_ntt_fwd``: forward negacyclic NTT of one width group, natural
   order, as two int8 matrix-product stages; ``enter`` folds the Montgomery
@@ -19,11 +19,18 @@ Four kernels (sources in ``liberate_tpu_torch/csrc``):
   key (launch counter ``mxu_switch_inv``, replaces
   ``mxu_pallas._ext_mulacc_inv_kernel_sk``) or a Montgomery-form key
   (counter ``mxu_switch_inv_mont``, replaces
-  ``mxu_pallas._ext_mulacc_inv_kernel``).
+  ``mxu_pallas._ext_mulacc_inv_kernel``);
+- ``mxu_ksk_accum``: the switch's core from extension words the caller
+  gives, with a Montgomery-form key: the forward transform of every part
+  and the key products summed over the parts, natural-order NTT-domain
+  output (replaces ``mxu_pallas._mulacc_kernel``), or with
+  ``fold_inverse`` also the inverse and the reduce to [0, q) (counter
+  ``mxu_ksk_accum_inv``, replaces ``mxu_pallas._mulacc_inv_kernel``).
 
-``dispatch``, ``dispatch_switch`` and ``dispatch_switch_inv`` run a level's
-width groups, as ``mxu_pallas.dispatch`` and ``dispatch_ksk_from_state``
-(with and without ``moddown_piw``) do.
+``dispatch``, ``dispatch_switch``, ``dispatch_switch_inv`` and
+``dispatch_ksk_accum`` run a level's width groups, as
+``mxu_pallas.dispatch``, ``dispatch_ksk_from_state`` (with and without
+``moddown_piw``) and ``dispatch_ksk_accum`` do.
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
@@ -43,7 +50,8 @@ from .cuda_ntt import _device_kind, _raise_on
 from .mxu_ntt import MxuPlan
 
 launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_switch": 0,
-            "mxu_switch_inv": 0, "mxu_switch_inv_mont": 0}
+            "mxu_switch_inv": 0, "mxu_switch_inv_mont": 0,
+            "mxu_ksk_accum": 0, "mxu_ksk_accum_inv": 0}
 
 # (dA, dB) pairs with compiled kernels (30-, 40- and 60-bit primes).
 DIGITS = (4, 6, 8)
@@ -171,11 +179,10 @@ def _fold_plain(r, piw, plan, special, n_sp, srcs):
     return (out, srcs) if special else out
 
 
-def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off):
-    """The switch of one width group without the mod-down (see
-    ``mxu_switch_inv``): [2, C, N] in [0, q). k0, k1: Shoup-form (value,
-    quotient) pairs, or Montgomery-form stacks."""
-    P, A, N = st.shape
+def _extend_plain(st, terms, off0, plan):
+    """The Shoup basis extension of the state rows st [P, A, N] onto the
+    group's channels: [P, C, N] in [0, 2q)."""
+    A = st.shape[1]
     q = plan.q[:, None]
     q2 = 2 * q
     s = st ^ u64.INT64_MIN
@@ -185,8 +192,18 @@ def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off):
         w, wp, cadj = (terms[:, i - 1, f, :, None] for f in range(3))
         e = _csub(u64.shoup_mul(s[:, i:i + 1], w, wp, q) + cadj, q2)
         acc = _csub(acc + e, q2)
-    x = mxu_ntt_fwd_plain(acc, plan)
-    C = x.shape[1]
+    return acc
+
+
+def _accum_plain(ext, k0, k1, plan, key_ch, part_off):
+    """The forward transform of every part of ext [P, C, N], both key
+    products (Shoup-form pairs or Montgomery-form stacks, read at parts
+    part_off.. and key channels key_ch..) and their sums over the parts:
+    [2, C, N], natural-order NTT domain [0, 2q)."""
+    P, C, _ = ext.shape
+    q = plan.q[:, None]
+    q2 = 2 * q
+    x = mxu_ntt_fwd_plain(ext, plan)
 
     def key(t):
         return t[part_off:part_off + P, key_ch:key_ch + C]
@@ -204,7 +221,38 @@ def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off):
     for p in range(1, P):
         a0 = _csub(a0 + p0[p], q2)
         a1 = _csub(a1 + p1[p], q2)
-    return mxu_ntt_inv_plain(torch.stack([a0, a1]), plan, post_reduce=True)
+    return torch.stack([a0, a1])
+
+
+def _montgomery_key(name, k0, k1):
+    if isinstance(k0, tuple) or isinstance(k1, tuple):
+        raise ValueError(f"{name}: a Montgomery-form key only (the JAX "
+                         f"kernels have no working Shoup-key branch)")
+
+
+def mxu_ksk_accum_plain(ext, k0, k1, plan, key_ch, part_off):
+    """#7: the forward transform of every part of ext [P, C, N] (words
+    below 2^{8 dB}), the Montgomery key products summed over the parts:
+    [2, C, N], natural-order NTT domain [0, 2q)."""
+    _montgomery_key("mxu_ksk_accum", k0, k1)
+    return _accum_plain(ext, k0, k1, plan, key_ch, part_off)
+
+
+def mxu_ksk_accum_inv_plain(ext, k0, k1, plan, key_ch, part_off):
+    """#8: mxu_ksk_accum_plain, then the inverse transform and the reduce:
+    [2, C, N], coefficient domain [0, q)."""
+    return mxu_ntt_inv_plain(
+        mxu_ksk_accum_plain(ext, k0, k1, plan, key_ch, part_off), plan,
+        post_reduce=True)
+
+
+def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off):
+    """The switch of one width group without the mod-down (see
+    ``mxu_switch_inv``): [2, C, N] in [0, q). k0, k1: Shoup-form (value,
+    quotient) pairs, or Montgomery-form stacks."""
+    acc = _accum_plain(_extend_plain(st, terms, off0, plan), k0, k1, plan,
+                       key_ch, part_off)
+    return mxu_ntt_inv_plain(acc, plan, post_reduce=True)
 
 
 def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
@@ -228,6 +276,8 @@ _ARGTYPES = {
     "ltt_mxu_switch_inv": [_I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
                            _P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _I]
     + [_P] * 16 + [_P],
+    "ltt_mxu_ksk_accum": [_I, _I, _P, _L, _L, _I, _P, _P, _L, _L, _P, _P, _P,
+                          _P, _L, _I, _I] + [_P] * 16 + [_P],
 }
 
 
@@ -461,6 +511,58 @@ def mxu_switch_inv(st, terms, off0, k0, k1, plan, key_ch, part_off,
     return out
 
 
+def mxu_ksk_accum(ext, k0, k1, plan, key_ch, part_off, fold_inverse=False,
+                  out=None):
+    """The switch's core of one width group from extension words: ext
+    [P, C, N] (words below 2^{8 dB}, e.g. [0, 2q)), Montgomery-form key
+    stacks k0, k1 [P_full, C0, N] read at parts part_off.. and key channels
+    key_ch... Returns out [2, C, N]: the key sums in the natural-order NTT
+    domain, [0, 2q) (counter ``mxu_ksk_accum``), or with ``fold_inverse``
+    their inverse transforms reduced to [0, q) (``mxu_ksk_accum_inv``)."""
+    _montgomery_key("mxu_ksk_accum", k0, k1)
+    P, C, N = ext.shape
+    if C != plan.num_channels or N != plan.S * plan.R:
+        raise ValueError("mxu_ksk_accum: ext does not match the plan")
+    for t in (k0, k1):
+        if t.shape != k0.shape or t.stride() != k0.stride() \
+                or t.shape[0] < part_off + P or t.shape[1] < key_ch + C \
+                or t.shape[2] != N:
+            raise ValueError("mxu_ksk_accum: key stacks do not cover the "
+                             "parts and channels")
+    if out is None:
+        out = torch.empty((2, C, N), dtype=torch.int64, device=ext.device)
+    elif out.shape != (2, C, N):
+        raise ValueError(f"out must be {(2, C, N)}")
+    twin = mxu_ksk_accum_inv_plain if fold_inverse else mxu_ksk_accum_plain
+    if _device_kind(ext) == "cpu":
+        out.copy_(twin(ext, k0, k1, plan, key_ch, part_off))
+        return out
+    _check_plan(plan, ext.device)
+    if any(t.device != ext.device for t in (k0, k1, out)) \
+            or out.stride(1) != N:
+        raise ValueError("mxu_ksk_accum: keys and output on the data's "
+                         "device, the output's channels dense")
+    _check_words(ext, k0, k1, out)
+    kv = [t[part_off:, key_ch:] for t in (k0, k1)]
+    inter1 = torch.empty((P, C, N), dtype=torch.int64, device=ext.device)
+    acc, inter2 = (torch.empty((2, C, N), dtype=torch.int64,
+                               device=ext.device) if fold_inverse else None
+                   for _ in range(2))
+    name = "mxu_ksk_accum_inv" if fold_inverse else "mxu_ksk_accum"
+    with torch.cuda.device(ext.device):
+        stream = torch.cuda.current_stream(ext.device).cuda_stream
+        rc = _fn("mxu_switch", "ltt_mxu_ksk_accum")(
+            plan.dA, int(fold_inverse), ext.data_ptr(), ext.stride(0),
+            ext.stride(1), P, kv[0].data_ptr(), kv[1].data_ptr(),
+            kv[0].stride(0), kv[0].stride(1), inter1.data_ptr(),
+            None if acc is None else acc.data_ptr(),
+            None if inter2 is None else inter2.data_ptr(), out.data_ptr(),
+            out.stride(0), C, _logN(plan), *_plan_ptrs(plan), stream)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
 # -- width-group dispatch ------------------------------------------------------------
 
 
@@ -527,4 +629,26 @@ def dispatch_switch_inv(st, terms, off0, k0, k1, groups, level, part_off,
             out[:, g.lo:g.hi] = mxu_switch_inv_plain(*args)
         else:
             mxu_switch_inv(*args, out=out[:, g.lo:g.hi])
+    return out
+
+
+def dispatch_ksk_accum(ext, k0, k1, groups, level, part_off,
+                       fold_inverse=False, plain=False):
+    """The switch's core over a level's with-special layout from extension
+    words ext [P, C_sp, N], one kernel per width group (see
+    ``mxu_ksk_accum``): [2, C_sp, N], the natural-order NTT-domain key
+    sums in [0, 2q), or with ``fold_inverse`` their inverse transforms in
+    [0, q). ``level`` is the layout's first global channel, the key
+    stacks' channel of data channel 0. ``plain``: run the twins."""
+    out = torch.empty((2, groups[-1].hi, ext.shape[-1]), dtype=torch.int64,
+                      device=ext.device)
+    for g in groups:
+        args = (ext[:, g.lo:g.hi], k0, k1, g.plan, level + g.lo, part_off)
+        if plain:
+            twin = (mxu_ksk_accum_inv_plain if fold_inverse
+                    else mxu_ksk_accum_plain)
+            out[:, g.lo:g.hi] = twin(*args)
+        else:
+            mxu_ksk_accum(*args, fold_inverse=fold_inverse,
+                          out=out[:, g.lo:g.hi])
     return out

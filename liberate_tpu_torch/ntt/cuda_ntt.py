@@ -1,7 +1,7 @@
 """The butterfly kernels: CUDA wrappers, their plain PyTorch twins and
 their launch counters.
 
-Three kernels (sources in ``liberate_tpu_torch/csrc``):
+Four kernels (sources in ``liberate_tpu_torch/csrc``):
 
 - ``ntt_fwd``: forward negacyclic NTT over [..., C, N], optionally entering
   Montgomery form first (a Shoup multiply by R mod q) and reducing to
@@ -10,7 +10,11 @@ Three kernels (sources in ``liberate_tpu_torch/csrc``):
   Montgomery exit) Shoup multiply and the optional reduce folded in
   (replaces ``pallas_ntt._intt_kernel``);
 - ``ksk_mulacc``: the key-switch products with both key halves, summed
-  over the gadget parts (replaces ``pallas_ntt._ksk_mulacc_kernel``).
+  over the gadget parts (replaces ``pallas_ntt._ksk_mulacc_kernel``);
+- ``ntt_mulacc``: the forward NTT of every gadget part and ``ksk_mulacc``
+  in one kernel, the unsplit switch core (replaces
+  ``pallas_ntt._ntt_mulacc_kernel`` without its canon pre-stage: the
+  port's basis extension is the Shoup one, already unsigned [0, 2q)).
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
@@ -25,7 +29,7 @@ import torch
 from .. import _build
 from . import u64
 
-launches = {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0}
+launches = {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0, "ntt_mulacc": 0}
 
 
 def reset_launches():
@@ -165,6 +169,13 @@ def ksk_mulacc_plain(x, k0, k1, plan, level, part_off):
     return d0, d1
 
 
+def ntt_mulacc_plain(x, k0, k1, plan, level, part_off):
+    """x [P, C, N] lazy [0, 2q): the forward NTT of every part, then
+    ksk_mulacc_plain. Returns (d0, d1) [C, N]."""
+    return ksk_mulacc_plain(ntt_fwd_plain(x, plan), k0, k1, plan, level,
+                            part_off)
+
+
 # -- CUDA launches -----------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -175,6 +186,8 @@ _ARGTYPES = {
     "ltt_ntt_inv": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "ltt_ksk_mulacc": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
                        _P],
+    "ltt_ntt_mulacc": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L,
+                       _L, _P, _P, _P],
 }
 
 
@@ -256,26 +269,37 @@ def ntt_inv(x, plan, post_exit=False, post_reduce=False):
         lambda xb: ntt_inv_plain(xb, plan, post_exit, post_reduce))
 
 
-def ksk_mulacc(x, k0, k1, plan, level, part_off):
-    """Key-switch multiply-accumulate (see ksk_mulacc_plain). The key
-    stacks are read in place through their strides."""
+def _check_switch_core(name, x, k0, k1, plan, level, part_off):
+    """Shape checks of the switch cores; on a CUDA tensor also the dtypes,
+    devices and strides the kernels read. Returns the key views at
+    (part_off, level)."""
     P, C, N = x.shape
     if plan.q.shape[0] != C or N != 1 << plan.logN:
-        raise ValueError("ksk_mulacc: x does not match the plan")
+        raise ValueError(f"{name}: x does not match the plan")
     if k0.shape != k1.shape or k0.stride() != k1.stride() \
             or k0.shape[0] < part_off + P or k0.shape[1] < level + C \
             or k0.shape[2] != N:
-        raise ValueError("ksk_mulacc: key stacks do not cover the parts "
-                         "and channels")
+        raise ValueError(f"{name}: key stacks do not cover the parts and "
+                         f"channels")
+    if x.is_cuda:
+        _check_cuda(x, plan.q, plan.k)
+        for t in (x, k0, k1):
+            if t.device != x.device or t.dtype != torch.int64 \
+                    or t.stride(2) != 1:
+                raise ValueError(f"{name}: int64 operands on one device "
+                                 f"with a contiguous coefficient axis")
+    return (k0[part_off:part_off + P, level:level + C],
+            k1[part_off:part_off + P, level:level + C])
+
+
+def ksk_mulacc(x, k0, k1, plan, level, part_off):
+    """Key-switch multiply-accumulate (see ksk_mulacc_plain). The key
+    stacks are read in place through their strides."""
+    k0v, k1v = _check_switch_core("ksk_mulacc", x, k0, k1, plan, level,
+                                  part_off)
     if _device_kind(x) == "cpu":
         return ksk_mulacc_plain(x, k0, k1, plan, level, part_off)
-    _check_cuda(x, plan.q, plan.k)
-    for t in (x, k0, k1):
-        if t.device != x.device or t.dtype != torch.int64 or t.stride(2) != 1:
-            raise ValueError("ksk_mulacc: int64 operands on one device with "
-                             "a contiguous coefficient axis")
-    k0v = k0[part_off:part_off + P, level:level + C]
-    k1v = k1[part_off:part_off + P, level:level + C]
+    P, C, N = x.shape
     d0 = torch.empty((C, N), dtype=torch.int64, device=x.device)
     d1 = torch.empty_like(d0)
     with torch.cuda.device(x.device):
@@ -287,4 +311,30 @@ def ksk_mulacc(x, k0, k1, plan, level, part_off):
             d1.data_ptr(), stream)
     _raise_on(rc, "ksk_mulacc")
     launches["ksk_mulacc"] += 1
+    return d0, d1
+
+
+def ntt_mulacc(x, k0, k1, plan, level, part_off):
+    """The unsplit switch core (see ntt_mulacc_plain): x [P, C, N] lazy
+    [0, 2q) extension words in, (d0, d1) [C, N] out. The key stacks are
+    read in place through their strides."""
+    k0v, k1v = _check_switch_core("ntt_mulacc", x, k0, k1, plan, level,
+                                  part_off)
+    if _device_kind(x) == "cpu":
+        return ntt_mulacc_plain(x, k0, k1, plan, level, part_off)
+    _check_cuda(x, plan.w, plan.wp)
+    P, C, N = x.shape
+    scratch = torch.empty((P, C, N), dtype=torch.int64, device=x.device)
+    d0 = torch.empty((C, N), dtype=torch.int64, device=x.device)
+    d1 = torch.empty_like(d0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _fn("ntt_mulacc", "ltt_ntt_mulacc")(
+            x.data_ptr(), x.stride(0), x.stride(1), scratch.data_ptr(), P, C,
+            plan.logN, plan.w.data_ptr(), plan.wp.data_ptr(),
+            plan.q.data_ptr(), plan.k.data_ptr(), k0v.data_ptr(),
+            k1v.data_ptr(), k0v.stride(0), k0v.stride(1), d0.data_ptr(),
+            d1.data_ptr(), stream)
+    _raise_on(rc, "ntt_mulacc")
+    launches["ntt_mulacc"] += 1
     return d0, d1

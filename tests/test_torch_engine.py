@@ -8,6 +8,12 @@ keys are NTT-domain lazy [0, 2q) words: the port's Shoup twiddles give
 other representatives than the JAX CPU path's Montgomery twiddles, so
 keys are compared reduced to [0, q), where they are bit-identical. The
 ciphertexts of encorypt and mult end in a reduce and are compared raw.
+
+The butterfly switch core's three routes (split, fused, composed) leave
+the same mult words, and the standalone entry points (``mult(relin=False)``,
+``relinearize``, ``square``, ``switch_key``, ``decrypt_triplet``) give the
+JAX engine's words: raw where the result ends in a reduce, mod q for the
+NTT-domain triplet.
 """
 
 import numpy as np
@@ -20,6 +26,8 @@ from liberate_tpu.fhe.data_struct import DataStruct as JaxDataStruct
 from liberate_tpu.fhe.data_struct import to_host
 from liberate_tpu.ntt import u64
 from liberate_tpu_torch import interop
+from liberate_tpu_torch.fhe import engine as port_engine
+from liberate_tpu_torch.ntt import cuda_ntt
 
 PARAMS = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
               is_secured=False, seed=20260816)
@@ -47,6 +55,17 @@ def _to_port(ds, device="cpu"):
 def _to_jax(ds):
     tree, meta = interop.to_reference_arrays(ds)
     return JaxDataStruct(tuple(jnp.asarray(t) for t in tree), **meta)
+
+
+def _assert_words_equal(ds_j, ds_t, q=None):
+    """Same flags and words (mod q when given: [C] moduli)."""
+    for f in ("origin", "level", "ntt_state", "montgomery_state"):
+        assert getattr(ds_j, f) == getattr(ds_t, f), f
+    for j, t in zip(ds_j.data, ds_t.data):
+        jw, tw = _jax_words(j), t.numpy()
+        if q is not None:
+            jw, tw = jw % q[:, None], tw % q[:, None]
+        assert np.array_equal(jw, tw)
 
 
 @pytest.fixture(scope="module")
@@ -161,3 +180,77 @@ def test_jax_ciphertext_decrypts_under_port(run):
     back = _to_port(_to_jax(run["ct_t"]))
     for a, b in zip(back.data, run["ct_t"].data):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("logN, split, route", [
+    (15, True, "split"), (16, True, "split"), (15, False, "fused"),
+    (16, False, "composed")])
+def test_butterfly_switch_route(logN, split, route):
+    """#4 unsplit up to logN 15, composed above, as the JAX engine's
+    supports_fused_accum gates it; the split route at every logN."""
+    assert port_engine.butterfly_switch_route(logN, split) == route
+
+
+def test_switch_routes_give_the_same_mult_words(run, monkeypatch):
+    """At logN 8 the fused route (``ntt_mulacc``) and the composed one
+    (forced by lowering FUSED_SWITCH_MAX_LOGN) leave the split route's mult
+    words, and each runs its own switch core."""
+    te, ct, evk = run["te"], run["ct_t"], run["keys_t"][2]
+    calls = []
+    for name in ("ntt_mulacc", "ksk_mulacc"):
+        def spy(*args, _f=getattr(cuda_ntt, name), _n=name):
+            calls.append(_n)
+            return _f(*args)
+        monkeypatch.setattr(cuda_ntt, name, spy)
+    monkeypatch.setattr(te, "use_split_switch", False)
+    outs = {"fused": te.mult(ct, ct, evk)}
+    assert calls == ["ntt_mulacc"]
+    monkeypatch.setattr(port_engine, "FUSED_SWITCH_MAX_LOGN", 7)
+    outs["composed"] = te.mult(ct, ct, evk)
+    assert calls == ["ntt_mulacc"]
+    for route, out in outs.items():
+        for a, b in zip(out.data, run["mult_t"].data):
+            assert torch.equal(a, b), route
+
+
+@pytest.mark.parametrize("entry", ["triplet", "relinearize", "square",
+                                   "switch_key", "decrypt_triplet"])
+def test_entry_point_words_equal_jax(run, entry):
+    """Each engine's own keys and ciphertext (identical words, keys equal
+    mod q); the switch_key key comes from the JAX engine through interop.
+    The triplet is NTT-domain lazy [0, 2q) (other representatives from the
+    port's Shoup twiddles): equal mod q. The rest end in a reduce: equal."""
+    je, te = run["je"], run["te"]
+    ct_j, ct_t = run["ct_j"], run["ct_t"]
+    (sk_j, _, evk_j), (sk_t, _, evk_t) = run["keys_j"], run["keys_t"]
+    m = run["m"]
+    if entry == "square":
+        out_j, out_t = je.square(ct_j, evk_j), te.square(ct_t, evk_t)
+        _assert_words_equal(out_j, out_t)
+        assert abs(te.absmax_error(te.decrode(out_t, sk_t), m * m)) < TOL
+        return
+    if entry == "switch_key":
+        sk2 = je.create_secret_key()
+        ksk = je.create_key_switching_key(sk_j, sk2)
+        out_j = je.switch_key(run["mult_j"], ksk)
+        out_t = te.switch_key(run["mult_t"], _to_port(ksk))
+        _assert_words_equal(out_j, out_t)
+        err = te.absmax_error(te.decrode(out_t, _to_port(sk2)), m * m)
+        assert abs(err) < TOL
+        return
+    ctt_j = je.mult(ct_j, ct_j, evk_j, relin=False)
+    ctt_t = te.mult(ct_t, ct_t, evk_t, relin=False)
+    if entry == "triplet":
+        q = np.array(te.ntt.q_ints(ctt_t.level, -1), dtype=np.int64)
+        _assert_words_equal(ctt_j, ctt_t, q)
+    elif entry == "relinearize":
+        out_t = te.relinearize(ctt_t, evk_t)
+        _assert_words_equal(je.relinearize(ctt_j, evk_j), out_t)
+        for a, b in zip(out_t.data, run["mult_t"].data):
+            assert torch.equal(a, b)
+    else:
+        dec_j = je.decrypt_triplet(ctt_j, sk_j)
+        dec_t = te.decrypt_triplet(ctt_t, sk_t)
+        assert np.array_equal(_jax_words(dec_j), dec_t.numpy())
+        err = te.absmax_error(te.decrode(ctt_t, sk_t), m * m)
+        assert abs(err) < TOL

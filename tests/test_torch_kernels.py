@@ -1,7 +1,7 @@
-"""The plain twins of the port's three CUDA kernels against the Pallas
-kernels they replace, run in interpret mode on the CPU: bit-exact, with
-the Shoup-form twiddle planes (the Pallas plan's default). Also against the
-XLA ``ops`` path, which uses Montgomery twiddles: equal mod q.
+"""The plain twins of the port's four butterfly CUDA kernels against the
+Pallas kernels they replace, run in interpret mode on the CPU: bit-exact,
+with the Shoup-form twiddle planes (the Pallas plan's default). Also
+against the XLA ``ops`` path, which uses Montgomery twiddles: equal mod q.
 
 logN 8, the 4 with-special channels of level 2 (C <= 4)."""
 
@@ -116,6 +116,40 @@ def test_ksk_mulacc_twin_matches_pallas(setup):
     assert np.array_equal(got1.numpy(), _words(want1))
 
 
+def test_ntt_mulacc_twin_matches_fused_pallas(setup, monkeypatch):
+    """The unsplit switch core (#4, ``_ntt_mulacc_kernel``), as the JAX
+    engine runs it with ``use_split_switch`` off and ``use_fused_switch``
+    on, without the canon pre-stage (Shoup extension): the same P=3 parts
+    and key placement as the split test above. The flags are set here
+    because another test file leaves ``use_fused_switch`` off behind it."""
+    P, part_off, P_full = 3, 1, 4
+    ctx = setup["ctx"]
+    C0, N = len(ctx.q), setup["N"]
+    rng = np.random.default_rng(4)
+    ext = np.stack([_data(setup, 1, seed=20 + p, lazy=True)[0]
+                    for p in range(P)])
+    qs = np.array(ctx.q, dtype=np.int64)
+    k0, k1 = ((rng.integers(0, 1 << 62, size=(P_full, C0, N))
+               % (2 * qs[:, None])).astype(np.int64) for _ in range(2))
+    monkeypatch.setattr(config, "use_split_switch", False)
+    monkeypatch.setattr(config, "use_fused_switch", True)
+
+    def split(*args, **kw):
+        raise AssertionError("the split switch core ran instead of #4")
+
+    monkeypatch.setattr(pallas_ntt, "_ntt_ksk_accum_split", split)
+    assert pallas_ntt.supports_fused_accum(setup["plan"])
+    ident = jnp.zeros((2, setup["C"]), jnp.uint32)  # unused without canon
+    want0, want1 = pallas_ntt.ntt_ksk_accum(
+        _packed(ext), _packed(k0), _packed(k1), setup["plan"], ident, LEVEL,
+        part_off, interpret=True, canon=False)
+    got0, got1 = cuda_ntt.ntt_mulacc_plain(
+        torch.from_numpy(ext), torch.from_numpy(k0), torch.from_numpy(k1),
+        setup["tplan"], LEVEL, part_off)
+    assert np.array_equal(got0.numpy(), _words(want0))
+    assert np.array_equal(got1.numpy(), _words(want1))
+
+
 @pytest.mark.parametrize("op", ["ntt", "enter_ntt", "intt",
                                 "intt_exit_reduce"])
 def test_twins_equal_xla_ops_mod_q(setup, op):
@@ -142,11 +176,21 @@ def test_wrappers_take_twins_only_on_cpu(setup):
     device with no kernel it raises instead of falling back."""
     tplan = setup["tplan"]
     a = torch.from_numpy(_data(setup, 2))
+    k = torch.from_numpy(_data(setup, 2, seed=8, lazy=True)).reshape(
+        2, setup["C"], -1)
     cuda_ntt.reset_launches()
     assert torch.equal(cuda_ntt.ntt_fwd(a, tplan, pre_enter=True),
                        cuda_ntt.ntt_fwd_plain(a, tplan, pre_enter=True))
     assert torch.equal(cuda_ntt.ntt_inv(a, tplan, post_exit=True),
                        cuda_ntt.ntt_inv_plain(a, tplan, post_exit=True))
-    assert cuda_ntt.launches == {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0}
+    for fn, twin in ((cuda_ntt.ntt_mulacc, cuda_ntt.ntt_mulacc_plain),
+                     (cuda_ntt.ksk_mulacc, cuda_ntt.ksk_mulacc_plain)):
+        assert torch.equal(torch.stack(fn(a, k, k, tplan, 0, 0)),
+                           torch.stack(twin(a, k, k, tplan, 0, 0)))
+    assert cuda_ntt.launches == {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0,
+                                 "ntt_mulacc": 0}
     with pytest.raises(RuntimeError, match="no kernel"):
         cuda_ntt.ntt_fwd(a.to("meta"), tplan)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        cuda_ntt.ntt_mulacc(a.to("meta"), k.to("meta"), k.to("meta"), tplan,
+                            0, 0)
