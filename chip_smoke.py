@@ -6,7 +6,10 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from ``liberate_tpu_torch/csrc`` with
    nvcc for sm_90a (into ``build/liberate_tpu_torch``), one nvcc per
-   source, all started together.
+   source, all started together; prints ptxas's registers, stack and
+   spills of every kernel entry (each instance of the tensor-core stage
+   kernel among them) and holds the stage kernel's compiled geometry
+   against ``cuda_mxu.stage_geometry``.
 3. Times the tensor-core (MXU) table build at silver, without and with
    the disk cache.
 4. Holds every kernel against its plain PyTorch twin on the same CUDA
@@ -18,7 +21,11 @@
    Montgomery-key switch (``mxu_switch_inv_mont``) and the switch core
    from extension words (``mxu_ksk_accum``, ``mxu_ksk_accum_inv``); at gold
    (logN 16) the butterfly kernels #1-#3, the tensor-core transforms and
-   the Shoup-key switch without the fold (``mxu_switch_inv``).
+   the Shoup-key switch without the fold (``mxu_switch_inv``). At gold it
+   also splits ``mxu_switch_inv`` and ``mxu_ntt_fwd`` by launch (profiler
+   kernel events) and times ``torch._int_mm`` of one (6, 6) channel's
+   forward stage-1 product of the switch as a yardstick of the int8
+   product alone (the port never calls it).
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
    one seed, in both NTT domains, with the Montgomery-form key and with the
    unsplit butterfly switch: the keys and ciphertexts must be identical
@@ -276,6 +283,150 @@ def time_and_profile(label, op, fn):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/{op} "
               f"x{e.count // reps} {e.key[:100]}")
+
+
+def launch_split(label, fn, roles, reps=20):
+    """Device ms per call of each launch role of fn(), whose launches come
+    in runs of ``roles`` (one run per width group): torch.profiler's kernel
+    events of one call in start order, averaged over ``reps`` calls, each
+    profiled alone after one warm-up (a call whose events the profiler did
+    not all keep is left out and counted). Prints and returns {role: ms per
+    call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # The profiler may miss the first kernel it traces: a spin
+            # kernel goes first.
+            torch.cuda._sleep(SPIN_CYCLES // 20)
+            fn()
+            torch.cuda.synchronize()
+        calls.append(sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("mxu::" in e.name or "extend" in e.name)),
+            key=lambda e: e.time_range.start))
+    per = max(len(k) for k in calls)
+    calls = [k for k in calls if len(k) == per]
+    kept = len(calls)
+    if not per or per % len(roles) or kept < reps // 2:
+        raise AssertionError(f"{label}: the profiler kept all {per} kernel "
+                             f"events of {kept} of {reps} calls")
+    split = {r: 0.0 for r in roles}
+    names = {r: set() for r in roles}
+    for kern in calls:
+        for i, e in enumerate(kern):
+            r = roles[i % len(roles)]
+            split[r] += e.time_range.elapsed_us() / 1e3
+            names[r].add(e.name.replace("(anonymous namespace)::", "")
+                         .split("(")[0][:60])
+    split = {r: v / kept for r, v in split.items()}
+    print(f"launch split ({label}, {per // len(roles)} width groups, "
+          f"{kept} of {reps} calls): total {sum(split.values()):.4f} "
+          f"ms/call")
+    for r in roles:
+        print(f"  {r}: {split[r]:.4f} ms/call ({', '.join(sorted(names[r]))})")
+    return split
+
+
+def gold_split_phase(eng_mxu, gen):
+    """The per-launch split of #10 (extension, forward stage 1, forward
+    stage 2 with the key sums, the two inverse stages) and #5 (stage 1,
+    stage 2) at the gold level-1 shapes of kernel_phase."""
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import _ksk_shoup
+    from liberate_tpu_torch.ntt import cuda_mxu
+
+    level = 1
+    parts = eng_mxu.ntt.parts(level)
+    P, N = len(parts), eng_mxu.ctx.N
+    A = max(p.alpha for p in parts)
+    mpack, mpack_sp = eng_mxu.pack(level, -1), eng_mxu.pack(level, -2)
+    C = mpack.q.shape[0]
+    pack0 = eng_mxu.pack(0, -2)
+    k0 = random_words(pack0.q, (len(eng_mxu.ntt.parts(0)),
+                                eng_mxu.ntt.total_channels, N), gen,
+                      lazy=True)
+    k1 = random_words(pack0.q, k0.shape, gen, lazy=True)
+    ks = (_ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0))
+    st = torch.randint(0, 1 << 62, (P, A, N), generator=gen,
+                       device=k0.device, dtype=torch.int64)
+    terms, off0, _ = eng_mxu._mxu_switch_tables(level)
+    x4 = random_words(mpack.q, (4, C, N), gen, lazy=True)
+    return {
+        "mxu_switch_inv": launch_split(
+            f"#10 mxu_switch_inv, P={P} C_sp={mpack_sp.q.shape[0]} A={A}",
+            lambda: cuda_mxu.dispatch_switch_inv(
+                st, terms, off0, *ks, mpack_sp.mxu, level,
+                parts[0].part_id),
+            ["extension", "forward stage 1", "forward stage 2 + key sums",
+             "inverse stage 1", "inverse stage 2"]),
+        "mxu_ntt_fwd": launch_split(
+            f"#5 mxu_ntt_fwd, B=4 C={C} enter",
+            lambda: cuda_mxu.dispatch(x4, mpack.mxu, enter=True),
+            ["stage 1", "stage 2"])}
+
+
+def geometry_check():
+    """The stage kernel's geometry as compiled (ltt_mxu_geometry) against
+    ntt/cuda_mxu.py's stage_geometry, for every digit count."""
+    import ctypes
+
+    from liberate_tpu_torch import _build
+    from liberate_tpu_torch.ntt import cuda_mxu
+
+    fn = _build.load("mxu_ntt").ltt_mxu_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for d in cuda_mxu.DIGITS:
+        out = (ctypes.c_int * 12)()
+        if fn(d, out) != 0:
+            raise AssertionError(f"no stage kernel geometry at d={d}")
+        g, gk = (cuda_mxu.stage_geometry(d, 256, 256, 256, 1, 1, ksum=k)
+                 for k in (False, True))
+        want = [g["tile_o"], g["ring"], g["smem"], gk["tile_o"], gk["ring"],
+                gk["smem"], g["kz"], g["tile_j"], g["x_slots"], g["threads"],
+                *g["regs"][1:]]
+        if list(out) != want:
+            raise AssertionError(f"stage geometry at d={d}: kernel "
+                                 f"{list(out)}, stage_geometry {want}")
+        print(f"  stage geometry d={d}: {out[7]} columns x {out[0]} rows "
+              f"per block ({out[3]} for the key sums), ring of {out[1]} "
+              f"({out[4]}) stages of {out[6]} table columns, {out[8]} X "
+              f"tiles, {out[2]} ({out[5]}) bytes of shared memory, "
+              f"{out[9]} threads, setmaxnreg {out[10]}/{out[11]}")
+
+
+def int8_yardstick(eng_mxu, gen):
+    """torch._int_mm of one gold (6, 6) channel's forward stage-1 product of
+    #10 ([DA*O, DB*K] x [DB*K, P*J] int8 -> int32), times the switch's (6, 6)
+    channel count: a yardstick of the int8 product alone. The port never
+    calls it, and no PyTorch call computes the stage's function."""
+    import torch
+
+    level = 1
+    P = len(eng_mxu.ntt.parts(level))
+    g = next(g for g in eng_mxu.pack(level, -2).mxu if g.plan.dA == 6)
+    plan, C = g.plan, g.hi - g.lo
+    a = plan.m1[0]
+    b = torch.randint(-128, 128, (plan.dB * plan.S, P * plan.R),
+                      generator=gen, device=a.device, dtype=torch.int8)
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:  # a cuBLASLt build that takes B column-major only
+        b = b.t().contiguous().t()
+    ms = cuda_ms(lambda: torch._int_mm(a, b), 100)[0]
+    macs = a.shape[0] * a.shape[1] * b.shape[1]
+    print(f"yardstick (not the kernel's library ms): torch._int_mm "
+          f"{a.shape[0]} x {a.shape[1]} x {b.shape[1]} (one (6, 6) channel's "
+          f"forward stage-1 product of #10) {ms:.4f} ms, "
+          f"{2 * macs / ms / 1e9:.1f} TOP/s; x {C} channels = "
+          f"{ms * C:.4f} ms")
+    return ms * C
 
 
 def messages(eng):
@@ -652,15 +803,22 @@ def main():
     print(f"build: {time.perf_counter() - t:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
     for name, p in libs.items():
-        # One line per kernel: its (mangled) entry and ptxas's registers.
+        # One line per kernel: its (mangled) entry, ptxas's registers and
+        # shared memory, and its stack and spills; and every ptxas warning
+        # (a serialised wgmma, an ignored setmaxnreg).
         log = p.with_suffix(".log")
-        entry = None
+        entry = spill = None
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "Compiling entry" in line:
-                entry = line.split("'")[1]
+                entry, spill = line.split("'")[1], None
+            elif "spill stores" in line:
+                spill = line.strip()
             elif "registers" in line and entry:
                 print(f"  ptxas[{name}] {entry}: "
-                      f"{line.split(':', 1)[1].strip()}")
+                      f"{line.split(':', 1)[1].strip()}; {spill}")
+            elif "warning" in line.lower():
+                print(f"  ptxas[{name}] {line.strip()}")
+    geometry_check()
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -702,6 +860,9 @@ def main():
         engines[preset] = (eng, eng_mxu)
         kernel_phase(preset, eng, eng_mxu, gen, rows,
                      opts.compile_yardstick and preset == "silver")
+        if preset == "gold":
+            gold_split_phase(eng_mxu, gen)
+            int8_yardstick(eng_mxu, gen)
 
     # -- 5. the path at logN 8: card against the CPU twins -----------------------
     for domain, kw in (

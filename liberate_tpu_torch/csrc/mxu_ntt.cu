@@ -11,21 +11,21 @@
 // What bounds it on the H100: the int8 multiply-accumulates, about
 // (dA dB S^2 R + dA dB R^2 S) per channel and polynomial (453e6 at silver
 // for the 40-bit primes' (6, 6) digits), against 1979e12 int8 operations
-// per second; the data (two 8-byte words per coefficient, read and written
-// once) and the tables (3.2 MB per channel at (6, 6), 5.5 MB at (8, 8))
-// come close behind at 3.35 TB/s.
+// per second; then the L2 traffic of the blocks' tiles: a channel's table
+// crosses L2 once per 128 columns of B * J, its data once per 32 rows of
+// the output; and the data in device memory (two 8-byte words per
+// coefficient, read and written once).
 //
 // Design: a channel's [S, R] intermediate is 256 KB at silver, more than a
 // block's shared memory, and stage 2 contracts along the other axis. So
-// each transform is two launches through global memory (the intermediate
-// stays in L2): stage 1 multiplies by the stage-1 table and applies the
-// twiddle in its epilogue; stage 2 reads the intermediate transposed and
-// writes the result. Both launches put the batch and the column tiles of
-// one channel next to each other in the grid, so the channel's tables are
-// read from device memory about once for the whole batch. This first
-// version issues mma.sync from shared memory, with each chunk's table tile
-// copied in by cp.async while the chunk is digitised (no TMA, no wgmma, no
-// double buffering).
+// each transform is two launches of the stage kernel of mxu.cuh (TMA rings
+// of table and data tiles, digits made once per block in registers, one
+// wgmma per table plane) through global memory, the intermediate staying
+// in L2: stage 1 multiplies by the stage-1 table and applies the twiddle
+// in its epilogue; stage 2 reads the intermediate transposed (its TMA box
+// runs along the intermediate's rows) and writes the result. Both launches put the batch and the column tiles of one channel
+// and row tile next to each other in the grid, so the channel's tables
+// are read from device memory about once for the whole batch.
 #include "mxu.cuh"
 
 using mxu::Stage;
@@ -84,4 +84,15 @@ extern "C" int ltt_mxu_ntt(int inverse, int d, const void* x, long long sb,
   b.tw = nullptr;
   b.post_reduce = post_reduce;
   return mxu::launch<mxu::kCols, mxu::kOut>(d, b, B, C, st);
+}
+
+// The stage kernel's geometry at d digits (see mxu::geometry_d): 12 ints
+// into out. -1 for a digit count without a kernel.
+extern "C" int ltt_mxu_geometry(int d, int* out) {
+  switch (d) {
+    case 4: mxu::geometry_d<4>(out); return 0;
+    case 6: mxu::geometry_d<6>(out); return 0;
+    case 8: mxu::geometry_d<8>(out); return 0;
+    default: return -1;
+  }
 }

@@ -37,17 +37,23 @@
 // What bounds it on the H100: about equally the int8 multiply-accumulates
 // of the P forward and two inverse transforms per channel and the bytes of
 // the key (value and quotient of both halves: 32 bytes per coefficient,
-// channel and part in Shoup form, 16 in Montgomery form), then the tables.
+// channel and part in Shoup form, 16 in Montgomery form), then the table
+// tiles that every block streams from L2 through its ring (in stage 2 once
+// per part).
 //
 // Design: the Pallas kernels walk the parts sequentially per channel with
 // both sums in VMEM; Hopper blocks run in no order, and a channel does not
 // fit a block. So the switch is five launches through global memory (L2),
-// and the fold a sixth:
+// the four transform stages being the stage kernel of mxu.cuh (TMA rings
+// of table and data tiles, digits made once per block in registers, one
+// wgmma per table plane), and the fold a sixth:
 //   1. the extension of every part onto every channel, elementwise (once
 //      per word: the stage blocks of one channel would each repeat it);
 //   2. stage 1 of the forward transform of every part;
-//   3. stage 2, where each block loops over the parts of its tile and
-//      keeps both key-product sums in registers;
+//   3. stage 2, where each block loops over the parts of its tile (the
+//      table tiles stream through its ring once per part), keeps both
+//      key-product sums in registers and reads the key words in its
+//      epilogue;
 //   4./5. the two inverse stages of both sums, the last with the reduce;
 //   6. (ltt_mxu_switch only) the mod-down fold: one thread per (half,
 //      coefficient) walks the special group's dropped rows in drop order,

@@ -56,6 +56,88 @@ launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_switch": 0,
 # (dA, dB) pairs with compiled kernels (30-, 40- and 60-bit primes).
 DIGITS = (4, 6, 8)
 
+# The stage kernel's constants (csrc/mxu.cuh): table columns per ring
+# stage, columns per block, X tiles in flight, threads (two consumer
+# warpgroups and a producer one), the registers ptxas gives a thread of
+# the block and those setmaxnreg gives a producer and a consumer thread,
+# the ring's cap and the shared-memory budget.
+KZ = 32
+TILE_J = 128
+X_SLOTS = 2
+THREADS = 384
+ENTRY_REGS = 168
+PRODUCER_REGS, CONSUMER_REGS = 40, 232
+MAX_RING = 16
+SMEM_BUDGET = 200 * 1024
+# Sides S, R of the transform that the stage kernel takes (logN 8 to 16).
+SIDES = (16, 32, 64, 128, 256)
+
+
+def tile_o(d, ksum=False):
+    """Output rows per block (the wgmma N) at d digits: 16 for the key-sum
+    stage at 8 digits (its two sums share the registers), else 32."""
+    return 16 if ksum and d == 8 else 32
+
+
+def stage_geometry(d, O, K, J, B, C, ksum=False):
+    """The launch geometry of one stage kernel at d digits (as
+    csrc/mxu.cuh computes it): O output rows, K rows contracted, J
+    columns, B batch elements (with ``ksum`` the parts, walked inside the
+    block), C channels."""
+    to = tile_o(d, ksum)
+    t_bytes, x_bytes = d * to * KZ, TILE_J * KZ * 8
+    ring = min(MAX_RING, (SMEM_BUDGET - 1024 - X_SLOTS * x_bytes)
+               // (t_bytes + 16))
+    kw = min(K, KZ)
+    pj = min(J, TILE_J)
+    return dict(
+        tile_o=to, tile_j=TILE_J, ring=ring, kz=KZ, x_slots=X_SLOTS,
+        threads=THREADS, regs=(ENTRY_REGS, PRODUCER_REGS, CONSUMER_REGS),
+        smem=1024 + X_SLOTS * (x_bytes + 16) + ring * (t_bytes + 16),
+        grid=((1 if ksum else B) * -(-J // TILE_J), -(-O // to), C),
+        window=kw, stages_per_part=len(stage_schedule(d, K)),
+        # registers a consumer thread holds across the stages: the d
+        # accumulator sets, the digit fragments of a window, and with
+        # ksum the two key sums (u64)
+        live_regs=d * to // 2 + 4 * d + (2 * to if ksum else 0),
+        # the table [C, d*O, d*K] (int8) as a 3-D TMA tensor map
+        tmap=dict(dims=(d * K, O, d * C), strides=(d * K, O * d * K),
+                  box=(KZ, min(O, to), d), swizzle=32),
+        tx_bytes=KZ * min(O, to) * d,
+        # the input words: box of kw rows of pj columns (rows in: [kw, pj]
+        # with the columns innermost; columns in: [pj, kw])
+        x_box=dict(rows=(pj, kw, 1, 1), cols=(kw, pj, 1, 1)),
+        x_tx_bytes=8 * kw * pj)
+
+
+def stage_schedule(d, K):
+    """The ring stages of one part of a stage kernel at d digits that
+    contracts K rows, in order: (z0, v0, nv, k0, kw) per stage, the table
+    columns z0 .. z0 + KZ holding digit planes v0 .. v0 + nv of X rows
+    k0 .. k0 + kw (column v*K + k is digit v of row k)."""
+    kw = min(K, KZ)
+    nv = KZ // kw
+    return [(v0 * K + k0, v0, nv, k0, kw) for k0 in range(0, K, kw)
+            for v0 in range(0, d, nv)]
+
+
+def transform_geometry(plan, B, inverse=False):
+    """The two stage launches of one transform of B polynomials."""
+    O1, J1 = (plan.R, plan.S) if inverse else (plan.S, plan.R)
+    C = plan.num_channels
+    return [stage_geometry(plan.dA, O1, O1, J1, B, C),
+            stage_geometry(plan.dA, J1, J1, O1, B, C)]
+
+
+def switch_geometry(plan, P):
+    """The four stage launches of one switch core of P parts: forward
+    stage 1 (B = P), stage 2 with the key sums, the two inverse stages of
+    both sums (B = 2)."""
+    S, R, C, d = plan.S, plan.R, plan.num_channels, plan.dA
+    return [stage_geometry(d, S, S, R, P, C),
+            stage_geometry(d, R, R, S, 1, C, ksum=True),
+            *transform_geometry(plan, 2, inverse=True)]
+
 
 def reset_launches():
     for k in launches:
@@ -297,6 +379,9 @@ def _check_plan(plan, device):
     if plan.dA != plan.dB or plan.dA not in DIGITS:
         raise ValueError(f"no MXU kernel for digits ({plan.dA}, {plan.dB}); "
                          f"built: {DIGITS}")
+    if plan.S not in SIDES or plan.R not in SIDES:
+        raise ValueError(f"no MXU kernel for a [{plan.S}, {plan.R}] "
+                         f"transform; sides taken: {SIDES}")
     for name, t in plan.tensors().items():
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"MXU table {name} must be contiguous on "
@@ -308,6 +393,15 @@ def _check_words(*ts):
         if t.dtype != torch.int64 or t.stride(-1) != 1:
             raise ValueError("expected int64 words with a contiguous "
                              "coefficient axis")
+
+
+def _check_tma(*ts):
+    """The stage kernel reads its input words by TMA: 16-byte aligned
+    tensors with strides of whole 16-byte units."""
+    for t in ts:
+        if t.data_ptr() % 16 or any(s % 2 for s in t.stride()[:-1]):
+            raise ValueError("the MXU kernels need 16-byte aligned words "
+                             "with even strides")
 
 
 def _batched(x, plan, out):
@@ -331,6 +425,7 @@ def _transform(name, inverse, x, plan, tables, post_reduce, twin, out):
         return out
     _check_plan(plan, x.device)
     _check_words(xb, out)
+    _check_tma(xb)
     B, C, N = xb.shape
     scratch = torch.empty((B, C, N), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
@@ -543,6 +638,7 @@ def mxu_ksk_accum(ext, k0, k1, plan, key_ch, part_off, fold_inverse=False,
         raise ValueError("mxu_ksk_accum: keys and output on the data's "
                          "device, the output's channels dense")
     _check_words(ext, k0, k1, out)
+    _check_tma(ext)
     kv = [t[part_off:, key_ch:] for t in (k0, k1)]
     inter1 = torch.empty((P, C, N), dtype=torch.int64, device=ext.device)
     acc, inter2 = (torch.empty((2, C, N), dtype=torch.int64,
