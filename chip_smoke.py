@@ -8,8 +8,10 @@
    nvcc for sm_90a (into ``build/liberate_tpu_torch``), one nvcc per
    source, all started together; prints ptxas's registers, stack and
    spills of every kernel entry (each instance of the tensor-core stage
-   kernel among them) and holds the stage kernel's compiled geometry
-   against ``cuda_mxu.stage_geometry``.
+   kernel among them), holds the stage kernel's compiled geometry against
+   ``cuda_mxu.stage_geometry`` and the butterfly transforms' cluster
+   geometry against ``cuda_ntt.bfly_geometry`` at logN 8-17 (printing K,
+   the threads and the shared bytes per logN).
 3. Times the tensor-core (MXU) table build at silver, without and with
    the disk cache.
 4. Holds every kernel against its plain PyTorch twin on the same CUDA
@@ -25,7 +27,13 @@
    also splits ``mxu_switch_inv`` and ``mxu_ntt_fwd`` by launch (profiler
    kernel events) and times ``torch._int_mm`` of one (6, 6) channel's
    forward stage-1 product of the switch as a yardstick of the int8
-   product alone (the port never calls it).
+   product alone (the port never calls it). Then ``ntt_fwd`` and
+   ``ntt_inv`` on plans of three of the 60-bit primes at logN 14 (one CTA
+   per channel) and 17 (clusters of 8), built without a bronze or
+   platinum engine. Beside each ``ntt_fwd``/``ntt_inv`` time it prints the
+   same kernel's time with a cold L2 (a 128 MB scratch written before each
+   launch) and that of ``x.clone()`` of its input, a yardstick of the
+   memory floor that the port never calls.
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
    one seed, in both NTT domains, with the Montgomery-form key and with the
    unsplit butterfly switch: the keys and ciphertexts must be identical
@@ -99,6 +107,28 @@ def cuda_ms(fn, reps, warmup=5):
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times), min(times), max(times)
+
+
+def cold_ms(fn, reps, scratch):
+    """(median, min, max) of ``reps`` CUDA-event timings of fn() with a
+    cold L2: ``scratch`` (larger than the 50 MB L2) is written before each
+    launch, outside the timed events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        scratch.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
@@ -187,9 +217,11 @@ def random_words(q, shape, gen, lazy=False):
 
 
 def check_case(name, label, fn, twin, b, rows, src, replaces,
-               library=None):
+               library=None, yardsticks=None):
     """Hold fn() bit for bit against twin() (tensors or tuples of them),
-    time both, and keep the first case of each kernel as its row."""
+    time both, and keep the first case of each kernel as its row. With
+    ``yardsticks`` (a scratch beyond L2, the input x) also the cold-L2
+    time and that of x.clone()."""
     import torch
 
     got, want = fn(), twin()
@@ -207,6 +239,14 @@ def check_case(name, label, fn, twin, b, rows, src, replaces,
     print(f"{name} [{label}]: bit-equal to twin; kernel {ms:.4f} ms "
           f"(min {ms_lo:.4f}, max {ms_hi:.4f}), twin {plain_ms:.3f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}), library {library_ms} ms")
+    if yardsticks:
+        scratch, x = yardsticks
+        cold = cold_ms(fn, 30, scratch)
+        copy = cuda_ms(x.clone, 100)
+        print(f"  {name} [{label}]: cold L2 {cold[0]:.4f} ms (min "
+              f"{cold[1]:.4f}, max {cold[2]:.4f}); yardstick x.clone() of "
+              f"its {8 * x.numel()} input bytes {copy[0]:.4f} ms (min "
+              f"{copy[1]:.4f}, max {copy[2]:.4f}), not the library ms")
     if name not in rows:
         rows[name] = dict(name=name, route="cuda", source=src,
                           replaces=replaces, launches=0,
@@ -401,6 +441,73 @@ def geometry_check():
               f"{out[9]} threads, setmaxnreg {out[10]}/{out[11]}")
 
 
+def bfly_geometry_check():
+    """The butterfly transforms' launch as compiled (ltt_ntt_geometry)
+    against ntt/cuda_ntt.py's bfly_geometry at every logN they take."""
+    import ctypes
+
+    from liberate_tpu_torch import _build
+    from liberate_tpu_torch.ntt import cuda_ntt
+
+    fn = _build.load("ntt").ltt_ntt_geometry
+    fn.argtypes = cuda_ntt._ARGTYPES["ltt_ntt_geometry"]
+    for logN in range(cuda_ntt.MIN_LOGN, cuda_ntt.MAX_LOGN + 1):
+        out = (ctypes.c_int * 16)()
+        if fn(logN, out) != 0:
+            raise AssertionError(f"no butterfly geometry at logN {logN}")
+        g = cuda_ntt.bfly_geometry(logN)
+        want = [g["K"], g["threads"], g["smem"], len(g["cross"]),
+                len(g["groups"]), g["teams"],
+                *(v for grp in g["groups"] for v in grp)]
+        if list(out)[:len(want)] != want:
+            raise AssertionError(f"butterfly geometry at logN {logN}: "
+                                 f"kernel {list(out)}, bfly_geometry {want}")
+        print(f"  butterfly geometry logN {logN}: clusters of K={out[0]} "
+              f"CTAs, {out[1]} threads, {out[2]} shared bytes per CTA, "
+              f"{out[3]} cross-chunk stages, register passes (first stage, "
+              f"stages) {g['groups']}, the passes after the first in "
+              f"{out[5]} teams")
+
+
+def transform_bound(x, logN, muls_extra):
+    """The bound of one butterfly transform of x [B, C, N]: the words read
+    and written once and the channel's twiddles and quotients once; N/2 *
+    logN Shoup products per polynomial, plus ``muls_extra`` per word (the
+    entry or exit multiply)."""
+    B, cx, N = x.shape
+    muls = B * cx * (N // 2) * logN + muls_extra * B * cx * N
+    return bound(8 * (2 * x.numel() + 2 * cx * N), muls * SHOUP_MULS)
+
+
+def prime_plans_phase(dev, gen, rows, scratch):
+    """ntt_fwd and ntt_inv against their twins on plans of three 60-bit
+    primes at logN 14 (K = 1) and 17 (K = 8), the multiply's batch
+    shapes."""
+    from liberate_tpu_torch.ntt import cuda_ntt
+
+    for logN, preset in ((14, "bronze"), (17, "platinum")):
+        t = time.perf_counter()
+        plan = cuda_ntt.prime_plan(logN, 3, dev)
+        C, N = 3, 1 << logN
+        print(f"logN {logN} ({preset}) plan of 3 primes: "
+              f"{time.perf_counter() - t:.2f} s")
+        x4 = random_words(plan.q, (4, C, N), gen)
+        x3 = random_words(plan.q, (3, C, N), gen, lazy=True)
+        for name, fn, twin, x, kw in (
+                ("ntt_fwd", cuda_ntt.ntt_fwd, cuda_ntt.ntt_fwd_plain, x4,
+                 dict(pre_enter=True)),
+                ("ntt_inv", cuda_ntt.ntt_inv, cuda_ntt.ntt_inv_plain, x3,
+                 dict(post_exit=True, post_reduce=True))):
+            check_case(name, f"logN {logN} B={x.shape[0]} C={C} "
+                       f"{'enter' if name == 'ntt_fwd' else 'exit+reduce'}",
+                       lambda: fn(x, plan, **kw), lambda: twin(x, plan, **kw),
+                       transform_bound(x, logN, 1), rows,
+                       "liberate_tpu_torch/csrc/ntt.cu",
+                       "liberate_tpu/ntt/pallas_ntt.py:"
+                       f"{534 if name == 'ntt_fwd' else 577}",
+                       yardsticks=(scratch, x))
+
+
 def int8_yardstick(eng_mxu, gen):
     """torch._int_mm of one gold (6, 6) channel's forward stage-1 product of
     #10 ([DA*O, DB*K] x [DB*K, P*J] int8 -> int32), times the switch's (6, 6)
@@ -590,7 +697,8 @@ def switch_core_path(eng, evk, gen, label, rows):
     time_and_profile(label, "switch", switch)
 
 
-def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
+def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
+                 scratch):
     """Every kernel of the preset's multiply against its twin at its shapes
     at level 1. Silver: the butterfly kernels, the tensor-core transforms,
     the folded switch and the Montgomery-key switch; gold: the butterfly
@@ -683,14 +791,14 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick):
                       + 2 * x.numel() * MONT_MULS)
         else:
             x = args[0]
-            B, cx = x.shape[0], x.shape[1]
-            muls = B * cx * (N // 2) * logN
-            if name == "ntt_inv" or kw.get("pre_enter"):
-                muls += B * cx * N          # the exit or entry multiply
-            b = bound(8 * (2 * x.numel() + 2 * cx * N), muls * SHOUP_MULS)
+            # the exit or entry multiply
+            b = transform_bound(x, logN, int(name == "ntt_inv"
+                                             or kw.get("pre_enter", False)))
         check_case(name, f"{preset} {label}", lambda: fn(*args, **kw),
                    lambda: twin(*args, **kw), b, rows, src, replaces,
-                   library)
+                   library, (scratch, args[0]) if name in ("ntt_fwd",
+                                                           "ntt_inv")
+                   else None)
 
     # The tensor-core kernels at the shapes of the MXU mult.
     mpack = eng_mxu.pack(level, -1)
@@ -819,6 +927,7 @@ def main():
             elif "warning" in line.lower():
                 print(f"  ptxas[{name}] {line.strip()}")
     geometry_check()
+    bfly_geometry_check()
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -845,6 +954,7 @@ def main():
     # -- 4. kernels against their twins at the silver and gold shapes ----------
     rows = {}
     engines = {}
+    scratch = torch.empty(16 << 20, dtype=torch.int64, device=dev)
     for preset in ("silver", "gold"):
         params = liberate_tpu_torch.params[preset]
         t = time.perf_counter()
@@ -859,10 +969,12 @@ def main():
               f"{time.perf_counter() - t:.2f} s")
         engines[preset] = (eng, eng_mxu)
         kernel_phase(preset, eng, eng_mxu, gen, rows,
-                     opts.compile_yardstick and preset == "silver")
+                     opts.compile_yardstick and preset == "silver", scratch)
         if preset == "gold":
             gold_split_phase(eng_mxu, gen)
             int8_yardstick(eng_mxu, gen)
+    prime_plans_phase(dev, gen, rows, scratch)
+    del scratch
 
     # -- 5. the path at logN 8: card against the CPU twins -----------------------
     for domain, kw in (

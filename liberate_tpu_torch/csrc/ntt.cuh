@@ -1,7 +1,7 @@
-// Forward butterfly stages shared by the forward NTT (ntt.cu) and the fused
-// key-switch core (ntt_mulacc.cu): Cooley-Tukey with natural-order input
-// and bit-reversed output, Shoup-form twiddles, lazy [0, 2q) words, the
-// twiddle of stage s and block b at bank entry 2^s + b.
+// Forward butterfly stages of the fused key-switch core (ntt_mulacc.cu):
+// Cooley-Tukey with natural-order input and bit-reversed output, Shoup-form
+// twiddles, lazy [0, 2q) words, the twiddle of stage s and block b at bank
+// entry 2^s + b; the same network as the forward NTT (ntt.cu).
 //
 // A channel of more than 2^12 words does not fit one block's shared memory,
 // so the long-span stages (span above a 2^12-word tile) run first through

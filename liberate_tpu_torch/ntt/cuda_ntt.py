@@ -20,6 +20,10 @@ A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
 kernel's arithmetic step for step, so both give the same words. Every
 launch adds one to ``launches[name]``.
+
+``ntt_fwd`` and ``ntt_inv`` run one thread-block cluster per (b, c)
+channel, its CTAs holding the channel in their shared memory;
+``bfly_geometry`` models that launch.
 """
 
 import ctypes
@@ -30,6 +34,55 @@ from .. import _build
 from . import u64
 
 launches = {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0, "ntt_mulacc": 0}
+
+
+# The butterfly transforms' launch (csrc/ntt.cu): a cluster of K CTAs per
+# channel, CTA k holding the chunk k of M = N / K words: M at most
+# 2^LOG_CHUNK, and K = 2^MAX_LOGK (8, the portable cluster limit) from
+# FULL_CLUSTER_LOGN on; logN from MIN_LOGN to MAX_LOGN.
+LOG_CHUNK = 14
+MAX_LOGK = 3
+FULL_CLUSTER_LOGN = 16
+MAX_COLUMN = 8
+PASS = 4
+MIN_LOGN, MAX_LOGN = 8, 17
+TEAM_THREADS = 128
+
+
+def bfly_geometry(logN, K=None):
+    """The launch of one butterfly transform at logN, as csrc/ntt.cu
+    computes it (its ``ltt_ntt_geometry``), or with K CTAs per cluster
+    forced (a model only).
+
+    Returns K, logM (log2 of a CTA's chunk), threads per CTA (one per 32
+    words), smem (bytes of shared memory per CTA), fold, cross, groups and
+    teams. The cross-chunk phase works on columns of K << fold words
+    (N >> (log2 K + fold) apart) and runs the stages ``cross`` on them in
+    registers: the log2 K stages across the chunks and the fold first
+    local ones, all of the stages before the first pass of PASS when a
+    column stays within MAX_COLUMN words and a thread's share of the
+    chunk, else none. ``groups``: the local register passes in forward
+    order as (first stage, stages), all of PASS stages but an unfolded
+    first one (the inverse runs them in reverse); ``teams``: how many
+    teams of TEAM_THREADS split the CTA in the passes of PASS, each on its
+    own 1/teams of the chunk.
+    """
+    if K is None:
+        K = 1 << (MAX_LOGK if logN >= FULL_CLUSTER_LOGN
+                  else max(0, logN - LOG_CHUNK))
+    logK = K.bit_length() - 1
+    if K != 1 << logK or logN - logK < 4:
+        raise ValueError(f"no cluster of {K} CTAs at logN {logN}")
+    logM = logN - logK
+    first = logM - PASS * ((logM - 1) // PASS)
+    threads = max(32, (1 << logM) >> 5)
+    column = K << first
+    fold = first if column <= min(MAX_COLUMN, (1 << logM) // threads) else 0
+    return dict(K=K, logM=logM, threads=threads, smem=8 << logM, fold=fold,
+                cross=list(range(logK + fold)),
+                groups=([(logK, first)] if fold != first else [])
+                + [(logK + r0, PASS) for r0 in range(first, logM, PASS)],
+                teams=min(max(1, threads // TEAM_THREADS), 1 << first))
 
 
 def reset_launches():
@@ -91,6 +144,25 @@ def make_plan(logN, q_list, k_list, psi_plain, ipsi_plain, device):
         ninv=scalar(ninv),
         ninv_exit=scalar([(n * r) % q for n, r, q in zip(ninv, rinv,
                                                           q_list)]))
+
+
+def prime_plan(logN, count, device, bits=60):
+    """The NttPlan of the ``count`` largest primes q = 1 (mod 2N) below
+    2^bits, without a whole context (the presets' 60-bit base and special
+    primes are the first of them): transform checks at any logN."""
+    from ..fhe.context.ckks_context import psi_bank
+    from ..fhe.context.prim_test import miller_rabin
+
+    m = 2 << logN
+    q, primes = ((1 << bits) - 1) // m * m + 1, []
+    while len(primes) < count:
+        if miller_rabin(q):
+            primes.append(q)
+        q -= m
+    R = 1 << 62
+    psi, ipsi = psi_bank(primes, logN)
+    return make_plan(logN, primes, [(-pow(p, -1, R)) % R for p in primes],
+                     psi, ipsi, device)
 
 
 # -- plain twins ------------------------------------------------------------------
@@ -184,6 +256,7 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "ltt_ntt_fwd": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "ltt_ntt_inv": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "ltt_ntt_geometry": [_I, ctypes.POINTER(_I)],
     "ltt_ksk_mulacc": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
                        _P],
     "ltt_ntt_mulacc": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L,
@@ -209,9 +282,16 @@ def _check_cuda(x, *tables):
                              "the data's device")
 
 
+_LAUNCH_ERRORS = {
+    -1: f"logN outside {MIN_LOGN}-{MAX_LOGN}",
+    -2: "its cluster of CTAs cannot be scheduled on this device",
+}
+
+
 def _raise_on(rc, name):
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+        raise RuntimeError(f"{name}: " + _LAUNCH_ERRORS.get(
+            rc, f"CUDA error {rc} at launch"))
 
 
 def _batched(x, plan):
@@ -231,13 +311,30 @@ def _device_kind(x):
     raise RuntimeError(f"no kernel for device {x.device}")
 
 
+def _check_transform(name, xb, plan):
+    """What the transform kernels take of xb [B, C, N]: a contiguous
+    coefficient axis, logN in their range and, for the inverse (read in
+    16-byte words), a 16-byte aligned start and even strides."""
+    B, C, _ = xb.shape
+    if xb.stride(2) != 1:
+        raise ValueError(f"{name}: the coefficient axis must be contiguous")
+    if not MIN_LOGN <= plan.logN <= MAX_LOGN:
+        raise ValueError(f"{name}: the kernel takes logN {MIN_LOGN}-"
+                         f"{MAX_LOGN}, not {plan.logN}")
+    if name == "ntt_inv" and (xb.data_ptr() % 16
+                              or (B > 1 and xb.stride(0) % 2)
+                              or (C > 1 and xb.stride(1) % 2)):
+        raise ValueError("ntt_inv: the kernel reads its input in 16-byte "
+                         "words: it must be 16-byte aligned with even "
+                         "batch and channel strides")
+
+
 def _transform(name, x, plan, w, wp, scal, post_reduce, twin):
     xb = _batched(x, plan)
     if _device_kind(x) == "cpu":
         return twin(xb).reshape(x.shape)
     _check_cuda(x, plan.q, w, wp, *(scal or ()))
-    if xb.stride(2) != 1:
-        raise ValueError(f"{name}: the coefficient axis must be contiguous")
+    _check_transform(name, xb, plan)
     B, C, N = xb.shape
     out = torch.empty((B, C, N), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
