@@ -52,8 +52,21 @@
    core from extension words (``_extend_shoup``, ``dispatch_ksk_accum``
    with and without ``fold_inverse``, ``_mod_down_shoup``) held word for
    word against the engine's own switch. Times each path's operation
-   (median of 7) and profiles one.
-7. Prints the kernels' JSON line and, last, the result line.
+   (median of 7) and profiles one; prints each path's peak device memory.
+7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
+   six special primes), one preset after the other, each preset's
+   engines freed before the next: the engines' start (the context cold
+   and from the cache; the tensor-core tables built, with the build's
+   peak device memory, written to the cache and read from it); every
+   kernel of the preset's multiply against its twin at its level-1
+   shapes (the butterfly #1-#3, #4 at bronze, the tensor-core transforms
+   #5 and #6, the Shoup key's switch: #11 in both modes with n_sp = 1 at
+   bronze, #10 at platinum, and #9 with the Montgomery-form key); at
+   platinum the split of #10 and #5 by launch; the paths butterfly,
+   tensor-core and, at platinum, tensor-core with the Montgomery-form
+   key, as in 6.
+8. Prints the script's time, the card line, the kernels' JSON line and,
+   last, the result line.
 
 ``--compile-yardstick`` also times ``torch.compile`` of the
 ``ksk_mulacc`` twin as that kernel's ``library_ms`` (the compile takes
@@ -237,8 +250,9 @@ def check_case(name, label, fn, twin, b, rows, src, replaces,
     library_ms = library() if library else None
     b_ms, b_by = b
     print(f"{name} [{label}]: bit-equal to twin; kernel {ms:.4f} ms "
-          f"(min {ms_lo:.4f}, max {ms_hi:.4f}), twin {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), library {library_ms} ms")
+          f"(median of 100; min {ms_lo:.4f}, max {ms_hi:.4f}), twin "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, share "
+          f"{100 * b_ms / ms:.1f} %), library {library_ms} ms")
     if yardsticks:
         scratch, x = yardsticks
         cold = cold_ms(fn, 30, scratch)
@@ -325,24 +339,28 @@ def time_and_profile(label, op, fn):
               f"x{e.count // reps} {e.key[:100]}")
 
 
-def launch_split(label, fn, roles, reps=20):
+def launch_split(label, fn, roles, groups, reps=20):
     """Device ms per call of each launch role of fn(), whose launches come
-    in runs of ``roles`` (one run per width group): torch.profiler's kernel
-    events of one call in start order, averaged over ``reps`` calls, each
-    profiled alone after one warm-up (a call whose events the profiler did
-    not all keep is left out and counted). Prints and returns {role: ms per
+    in ``groups`` runs of ``roles`` (one run per width group):
+    torch.profiler's kernel events of one call in start order,
+    averaged over ``reps`` calls, each profiled alone after one warm-up. A
+    call whose events the profiler did not all keep is left out and
+    counted, and another is profiled, up to 3 x ``reps`` calls; at least
+    half of ``reps`` must be whole. Prints and returns {role: ms per
     call}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    calls = []
-    for _ in range(reps):
+    calls, tried = [], 0
+    per = len(roles) * groups
+    while tried < 3 * reps and sum(len(k) == per for k in calls) < reps:
+        tried += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # The profiler may miss the first kernel it traces: a spin
-            # kernel goes first.
-            torch.cuda._sleep(SPIN_CYCLES // 20)
+            # The profiler may miss the first kernels it traces: a spin
+            # kernel of about 1 ms goes first.
+            torch.cuda._sleep(SPIN_CYCLES)
             fn()
             torch.cuda.synchronize()
         calls.append(sorted(
@@ -350,12 +368,13 @@ def launch_split(label, fn, roles, reps=20):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and ("mxu::" in e.name or "extend" in e.name)),
             key=lambda e: e.time_range.start))
-    per = max(len(k) for k in calls)
+    short = sorted(len(k) for k in calls if len(k) != per)
     calls = [k for k in calls if len(k) == per]
     kept = len(calls)
-    if not per or per % len(roles) or kept < reps // 2:
+    if kept < reps // 2:
         raise AssertionError(f"{label}: the profiler kept all {per} kernel "
-                             f"events of {kept} of {reps} calls")
+                             f"events of {kept} of {tried} calls (the "
+                             f"others kept {short})")
     split = {r: 0.0 for r in roles}
     names = {r: set() for r in roles}
     for kern in calls:
@@ -366,17 +385,17 @@ def launch_split(label, fn, roles, reps=20):
                          .split("(")[0][:60])
     split = {r: v / kept for r, v in split.items()}
     print(f"launch split ({label}, {per // len(roles)} width groups, "
-          f"{kept} of {reps} calls): total {sum(split.values()):.4f} "
-          f"ms/call")
+          f"{kept} of {tried} calls whole, the others kept {short} events): "
+          f"total {sum(split.values()):.4f} ms/call")
     for r in roles:
         print(f"  {r}: {split[r]:.4f} ms/call ({', '.join(sorted(names[r]))})")
     return split
 
 
-def gold_split_phase(eng_mxu, gen):
+def split_phase(eng_mxu, gen):
     """The per-launch split of #10 (extension, forward stage 1, forward
     stage 2 with the key sums, the two inverse stages) and #5 (stage 1,
-    stage 2) at the gold level-1 shapes of kernel_phase."""
+    stage 2) at the level-1 shapes of kernel_phase (gold, platinum)."""
     import torch
 
     from liberate_tpu_torch.fhe.engine import _ksk_shoup
@@ -405,11 +424,11 @@ def gold_split_phase(eng_mxu, gen):
                 st, terms, off0, *ks, mpack_sp.mxu, level,
                 parts[0].part_id),
             ["extension", "forward stage 1", "forward stage 2 + key sums",
-             "inverse stage 1", "inverse stage 2"]),
+             "inverse stage 1", "inverse stage 2"], len(mpack_sp.mxu)),
         "mxu_ntt_fwd": launch_split(
             f"#5 mxu_ntt_fwd, B=4 C={C} enter",
             lambda: cuda_mxu.dispatch(x4, mpack.mxu, enter=True),
-            ["stage 1", "stage 2"])}
+            ["stage 1", "stage 2"], len(mpack.mxu))}
 
 
 def geometry_check():
@@ -564,10 +583,14 @@ def drive_path(eng, label, rows, per_mult=None):
     with the counters zeroed just before; checks the error, that mult
     launched every kernel of the engine's domain and switch route (exactly
     ``per_mult`` launches where given) and that the path launched no other.
-    Times mult and profiles one. Returns (sk, pk, evk)."""
+    Times mult, profiles one and prints the path's peak device memory.
+    Returns (sk, pk, evk)."""
     import torch
 
     own = own_kernels(eng)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t = time.perf_counter()
     sk = eng.create_secret_key()
@@ -601,6 +624,9 @@ def drive_path(eng, label, rows, per_mult=None):
                              f"{per_mult}")
     check_launches(label, path, own, rows)
     time_and_profile(label, "mult", lambda: eng.mult(ct1, ct2, evk))
+    print(f"{label} path: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB held by the engine before the path)")
     return sk, pk, evk
 
 
@@ -700,14 +726,15 @@ def switch_core_path(eng, evk, gen, label, rows):
 def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
                  scratch):
     """Every kernel of the preset's multiply against its twin at its shapes
-    at level 1. Silver: the butterfly kernels, the tensor-core transforms,
-    the folded switch and the Montgomery-key switch; gold: the butterfly
-    kernels, the tensor-core transforms and the Shoup-key switch without
-    the fold."""
+    at level 1: the butterfly kernels (#4 up to logN 15), the tensor-core
+    transforms, the tensor-core switch of the Shoup key's route (the folded
+    #11 up to logN 15, else #10) and, but at gold, the Montgomery-key
+    switch (#9); at silver also the switch core from extension words (#7,
+    #8)."""
     import torch
 
     from liberate_tpu_torch.fhe.engine import FUSED_SWITCH_MAX_LOGN, \
-        _ksk_shoup
+        _ksk_shoup, switch_route
     from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
 
     level = 1
@@ -825,22 +852,32 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
     ]
     sw_base = (st, terms, off0)
     ks = (_ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0))
-    if preset == "silver":
-        mxu_cases += [
-            ("mxu_switch", f"P={P} C_sp={C_sp} A={A} level={level}, special "
-             f"then ordinary mode",
+    if switch_route(logN, True) == "mxu_switch":
+        mxu_cases.append(
+            ("mxu_switch", f"P={P} C_sp={C_sp} A={A} n_sp={n_sp} "
+             f"level={level}, special then ordinary mode",
              lambda p: cuda_mxu.dispatch_switch(
                  *sw_base, piw, *ks, mpack_sp.mxu, level, part_off, n_sp,
                  plain=p),
              mxu_switch_work(mpack_sp.mxu, P, A, n_sp, S, R),
-             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:815"),
+             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:815"))
+    else:
+        mxu_cases.append(
+            ("mxu_switch_inv", f"P={P} C_sp={C_sp} A={A} level={level}, "
+             f"Shoup-form key",
+             lambda p: cuda_mxu.dispatch_switch_inv(
+                 *sw_base, *ks, mpack_sp.mxu, level, part_off, plain=p),
+             mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R),
+             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:777"))
+    if preset != "gold":
+        mxu_cases.append(
             ("mxu_switch_inv_mont", f"P={P} C_sp={C_sp} A={A} "
              f"level={level}, Montgomery-form key",
              lambda p: cuda_mxu.dispatch_switch_inv(
                  *sw_base, k0, k1, mpack_sp.mxu, level, part_off, plain=p),
              mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R, mont=True),
-             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:588"),
-        ]
+             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:588"))
+    if preset == "silver":
         ext = random_words(mpack_sp.q, (P, C_sp, N), gen, lazy=True)
         for fold, name, line in ((False, "mxu_ksk_accum", 433),
                                  (True, "mxu_ksk_accum_inv", 574)):
@@ -853,24 +890,107 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
                  mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R, mont=True,
                                  from_ext=True, inverse=fold),
                  "mxu_switch.cu", f"liberate_tpu/ntt/mxu_pallas.py:{line}"))
-    else:
-        mxu_cases.append(
-            ("mxu_switch_inv", f"P={P} C_sp={C_sp} A={A} level={level}, "
-             f"Shoup-form key",
-             lambda p: cuda_mxu.dispatch_switch_inv(
-                 *sw_base, *ks, mpack_sp.mxu, level, part_off, plain=p),
-             mxu_switch_work(mpack_sp.mxu, P, A, 0, S, R),
-             "mxu_switch.cu", "liberate_tpu/ntt/mxu_pallas.py:777"))
     for name, label, run, work, file, replaces in mxu_cases:
         by, muls, macs = work
         print(f"  {preset} {name} work: {by} bytes, {muls} 32-bit "
-              f"multiplies, {macs} int8 MACs")
+              f"multiplies, {macs} int8 MACs (S={S}, R={R})")
         check_case(name, f"{preset} {label}", lambda run=run: run(False),
                    lambda run=run: run(True), bound(by, muls, macs), rows,
                    "liberate_tpu_torch/csrc/" + file, replaces)
 
 
+def engine_start(preset, dev):
+    """The start of the preset's engines, in parts: the context built cold
+    (its cached pickle not read, then rewritten) and read from the cache;
+    the tensor-core tables built without the cache (with the build's peak
+    device memory), built and written to the cache, and read from it."""
+    import torch
+
+    import liberate_tpu_torch
+    from liberate_tpu_torch.fhe.context.ckks_context import CkksContext
+    from liberate_tpu_torch.ntt import mxu_ntt
+
+    params = {k: v for k, v in liberate_tpu_torch.params[preset].items()
+              if k != "mesh_shape"}
+    t = time.perf_counter()
+    CkksContext(**params, read_cache=False)
+    cold = time.perf_counter() - t
+    t = time.perf_counter()
+    ctx = CkksContext(**params)
+    cached = time.perf_counter() - t
+    print(f"{preset} context ({len(ctx.q)} primes, logN {ctx.logN}): "
+          f"{cold:.2f} s cold, {cached:.3f} s from the cache")
+    groups = mxu_ntt.width_groups(ctx.q)
+    for lo, hi, (dA, dB) in groups:
+        mxu_ntt._cache_path(ctx, lo, hi, dA, dB).unlink(missing_ok=True)
+    times = []
+    for cache in (False, True, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        plans = mxu_ntt.group_plans(ctx, dev, cache=cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if not cache:
+            size = sum(t.numel() * t.element_size() for _, _, p in plans
+                       for t in p.tensors().values())
+            peak = torch.cuda.max_memory_allocated() - held
+        del plans
+    files = sum(mxu_ntt._cache_path(ctx, lo, hi, *d).stat().st_size
+                for lo, hi, d in groups)
+    print(f"MXU tables at {preset} (groups "
+          f"{[(lo, hi, d) for lo, hi, d in groups]}): {size / 1e9:.3f} GB "
+          f"on the device, build {times[0]:.3f} s uncached (peak "
+          f"{peak / 1e9:.3f} GB above what was held), {times[1]:.3f} s "
+          f"building and writing the cache ({files / 1e9:.3f} GB of files), "
+          f"{times[2]:.3f} s read from the cache")
+    torch.cuda.empty_cache()
+
+
+def preset_phase(preset, dev, gen, rows, scratch):
+    """Bronze and platinum: the engines' start (engine_start, then the
+    butterfly and tensor-core engines from the cached context and
+    tables), every kernel of their multiply against its twin, the split
+    of #10 and #5 by launch (platinum), and the paths with the launch
+    counters zeroed: butterfly, tensor-core and, at platinum, the
+    tensor-core engine with the Montgomery-form key. Each engine is freed
+    after its path."""
+    import torch
+
+    import liberate_tpu_torch
+
+    t0 = time.perf_counter()
+    params = liberate_tpu_torch.params[preset]
+    engine_start(preset, dev)
+    t = time.perf_counter()
+    eng = liberate_tpu_torch.CkksEngine(**params, seed=SEED)
+    print(f"{preset} engine (context from the cache, butterfly tables): "
+          f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    eng_mxu = liberate_tpu_torch.CkksEngine(**params, seed=SEED,
+                                            use_mxu_ntt=True)
+    print(f"{preset} MXU engine (context and tables from the cache): "
+          f"{time.perf_counter() - t:.2f} s")
+    kernel_phase(preset, eng, eng_mxu, gen, rows, False, scratch)
+    if preset == "platinum":
+        split_phase(eng_mxu, gen)
+    drive_path(eng, f"{preset} butterfly", rows)
+    del eng
+    drive_path(eng_mxu, f"{preset} MXU", rows)
+    del eng_mxu
+    if preset == "platinum":
+        torch.cuda.empty_cache()
+        eng_mont = liberate_tpu_torch.CkksEngine(
+            **params, seed=SEED, use_mxu_ntt=True, use_shoup_ksk=False)
+        drive_path(eng_mont, f"{preset} MXU Montgomery-key", rows)
+        del eng_mont
+    torch.cuda.empty_cache()
+    print(f"{preset} phases: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
+    start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compile-yardstick", action="store_true",
                     help="time torch.compile of the ksk_mulacc twin as its "
@@ -971,10 +1091,9 @@ def main():
         kernel_phase(preset, eng, eng_mxu, gen, rows,
                      opts.compile_yardstick and preset == "silver", scratch)
         if preset == "gold":
-            gold_split_phase(eng_mxu, gen)
+            split_phase(eng_mxu, gen)
             int8_yardstick(eng_mxu, gen)
     prime_plans_phase(dev, gen, rows, scratch)
-    del scratch
 
     # -- 5. the path at logN 8: card against the CPU twins -----------------------
     for domain, kw in (
@@ -1023,10 +1142,18 @@ def main():
     standalone_switch_path(eng_unsplit, keys, "silver standalone switch",
                            rows)
     del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, keys, engines["silver"]
-    eng, eng_mxu = engines["gold"]
+    eng, eng_mxu = engines.pop("gold")
     drive_path(eng, "gold butterfly", rows)
     drive_path(eng_mxu, "gold MXU", rows)
+    del eng, eng_mxu
+    torch.cuda.empty_cache()
 
+    # -- 7. bronze and platinum: start, kernels, paths ---------------------------
+    for preset in ("bronze", "platinum"):
+        preset_phase(preset, dev, gen, rows, scratch)
+    del scratch
+
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

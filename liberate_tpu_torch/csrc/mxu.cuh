@@ -11,8 +11,14 @@
 //
 // where T is the channel's balanced-digit table (int8, row-major
 // [DA*O, DB*K]), digit_v the v-th byte of the 64-bit word and rs the table
-// row's offset correction. |E_u| < 2^28, so int32 accumulation is exact in
-// any order. The recombination is the Shoup form of
+// row's offset correction. The sides S, R of the transform (O, K and J of
+// its stages) are 16 to 512 (logN 8 to 17). |E_u| <= DB*K * 128^2 plus
+// |rs| of the same size: 2^27 at platinum's K = 512 and 8 digits, inside
+// "|E_u| < 2^28", so int32 accumulation is exact in any order. Word,
+// twiddle and key offsets are formed in 64-bit integers (at logN 17 a key
+// stack is 1.3e8 words, 1.1 GB, and a switch's scratch as large); table
+// row and column indices, TMA coordinates and grid dimensions stay far
+// below 2^31. The recombination is the Shoup form of
 // liberate_tpu/ntt/mxu_pallas.py `_recombine_k(shoup_rec=True)`: Horner
 // over the planes, a Barrett reduction of the low part and a Shoup product
 // of the high part (both offset by 2^63), a per-channel correction and two

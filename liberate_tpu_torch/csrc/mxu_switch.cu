@@ -11,7 +11,8 @@
 // groups: they consume the exported rows). Same words as the Pallas
 // kernel; its ordinary rows also equal what ltt_mxu_switch_inv followed by
 // the engine's separate mod-down gives (tests/test_torch_switch.py holds
-// the two routes' mult words equal at two and four special primes).
+// the two routes' mult words equal at one, two, four and six special
+// primes).
 //
 // Replaces, ltt_mxu_switch_inv: `_ext_mulacc_inv_kernel_sk` (:777, Shoup-form
 // key: value and quotient stacks) and `_ext_mulacc_inv_kernel` (:588,

@@ -69,8 +69,9 @@ ENTRY_REGS = 168
 PRODUCER_REGS, CONSUMER_REGS = 40, 232
 MAX_RING = 16
 SMEM_BUDGET = 200 * 1024
-# Sides S, R of the transform that the stage kernel takes (logN 8 to 16).
-SIDES = (16, 32, 64, 128, 256)
+# Sides S, R of the transform that the stage kernel takes (logN 8 to 17,
+# the presets' range: platinum's logN 17 is S = 512, R = 256).
+SIDES = (16, 32, 64, 128, 256, 512)
 
 
 def tile_o(d, ksum=False):
@@ -166,10 +167,18 @@ def _cols(plan, *names):
 
 def _matmul(table, rs, x, dB):
     """E = table [C, dA*O, dB*K] x offset digits of x [B, C, K, J], plus the
-    row-sum corrections: int64 [B, C, dA*O, J] (the kernels' int32 sums)."""
-    d = torch.cat([((x >> (8 * v)) & 0xFF) - 128 for v in range(dB)], dim=-2)
-    E = torch.matmul(table.to(torch.float64), d.to(torch.float64))
-    return E.to(torch.int64) + rs.to(torch.int64)[:, :, None]
+    row-sum corrections: int64 [B, C, dA*O, J] (the kernels' int32 sums).
+    One batch element at a time: a broadcast product copies the table for
+    each (65 GB for platinum's switch of 13 parts)."""
+    t = table.to(torch.float64)
+    rs = rs.to(torch.int64)[:, :, None]
+    B, C, _, J = x.shape
+    E = torch.empty((B, C, t.shape[1], J), dtype=torch.int64, device=x.device)
+    for b in range(B):
+        d = torch.cat([((x[b] >> (8 * v)) & 0xFF) - 128 for v in range(dB)],
+                      dim=-2)
+        E[b] = torch.matmul(t, d.to(torch.float64)).to(torch.int64) + rs
+    return E
 
 
 def _recombine(E, plan):

@@ -145,17 +145,22 @@ def _balanced_digits(x, nd):
 
 
 def _decompose(M, qs, qt, dA, dB):
-    """M [C, O, I] canonical -> (int8 [C, dA*O, dB*I], int32 [C, dA*O])."""
+    """M [C, O, I] canonical -> (int8 [C, dA*O, dB*I], int32 [C, dA*O]).
+    One data digit v at a time goes into the int8 table, so the int64
+    digits of one v are the largest temporary (at platinum's 512-point
+    side a stack of all dB would be 5.4 GB for one (6, 6) table)."""
     C, O, I = M.shape
-    digs = torch.stack([
-        _balanced_digits(_mulmod_const(M, [pow(2, 8 * v, q) for q in qs],
-                                       qs, qt), dA)
-        for v in range(dB)], dim=3)                   # [dA, C, O, dB, I]
-    digs = digs.permute(1, 0, 2, 3, 4)                # [C, dA, O, dB, I]
-    rs = 128 * digs.sum(dim=(3, 4))
+    out = torch.empty((C, dA, O, dB, I), dtype=torch.int8, device=M.device)
+    rs = torch.zeros((C, dA, O), dtype=torch.int64, device=M.device)
+    for v in range(dB):
+        digs = _balanced_digits(_mulmod_const(
+            M, [pow(2, 8 * v, q) for q in qs], qs, qt),
+            dA).transpose(0, 1)                       # [C, dA, O, I]
+        out[:, :, :, v] = digs
+        rs += 128 * digs.sum(dim=3)
     if bool((rs.abs() >= 2 ** 31).any()):
         raise ValueError("row-sum correction exceeds int32")
-    return (digs.reshape(C, dA * O, dB * I).to(torch.int8),
+    return (out.reshape(C, dA * O, dB * I),
             rs.reshape(C, dA * O).to(torch.int32))
 
 

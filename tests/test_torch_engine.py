@@ -9,6 +9,10 @@ other representatives than the JAX CPU path's Montgomery twiddles, so
 keys are compared reduced to [0, q), where they are bit-identical. The
 ciphertexts of encorypt and mult end in a reduce and are compared raw.
 
+With one special prime (bronze's partition: one channel per gadget part)
+the port's mult gives the JAX engine's words too. The gadget partition
+(``RnsPartition``) equals the JAX package's at every preset's prime counts.
+
 The butterfly switch core's three routes (split, fused, composed) leave
 the same mult words, and the standalone entry points (``mult(relin=False)``,
 ``relinearize``, ``square``, ``switch_key``, ``decrypt_triplet``) give the
@@ -16,18 +20,24 @@ JAX engine's words: raw where the result ends in a reduce, mod q for the
 NTT-domain triplet.
 """
 
+import gc
+import weakref
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 import liberate_tpu_torch
+import liberate_tpu
 from liberate_tpu.fhe.data_struct import DataStruct as JaxDataStruct
 from liberate_tpu.fhe.data_struct import to_host
 from liberate_tpu.ntt import u64
+from liberate_tpu.ntt.rns_partition import RnsPartition as JaxRnsPartition
 from liberate_tpu_torch import interop
 from liberate_tpu_torch.fhe import engine as port_engine
 from liberate_tpu_torch.ntt import cuda_ntt
+from liberate_tpu_torch.ntt.rns_partition import RnsPartition
 
 PARAMS = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
               is_secured=False, seed=20260816)
@@ -53,8 +63,16 @@ def _to_port(ds, device="cpu"):
 
 
 def _to_jax(ds):
-    tree, meta = interop.to_reference_arrays(ds)
-    return JaxDataStruct(tuple(jnp.asarray(t) for t in tree), **meta)
+    def build(tree, meta):
+        def conv(x):
+            if isinstance(x, tuple) and len(x) == 2 \
+                    and isinstance(x[1], dict):
+                return build(*x)
+            if isinstance(x, (tuple, list)):
+                return type(x)(conv(t) for t in x)
+            return jnp.asarray(x)
+        return JaxDataStruct(conv(tree), **meta)
+    return build(*interop.to_reference_arrays(ds))
 
 
 def _assert_words_equal(ds_j, ds_t, q=None):
@@ -184,11 +202,70 @@ def test_jax_ciphertext_decrypts_under_port(run):
 
 @pytest.mark.parametrize("logN, split, route", [
     (15, True, "split"), (16, True, "split"), (15, False, "fused"),
-    (16, False, "composed")])
+    (16, False, "composed"), (14, True, "split"), (17, True, "split"),
+    (14, False, "fused"), (17, False, "composed")])
 def test_butterfly_switch_route(logN, split, route):
-    """#4 unsplit up to logN 15, composed above, as the JAX engine's
-    supports_fused_accum gates it; the split route at every logN."""
+    """#4 unsplit up to logN 15 (bronze's 14 included), composed above
+    (platinum's 17), as the JAX engine's supports_fused_accum gates it;
+    the split route at every logN."""
     assert port_engine.butterfly_switch_route(logN, split) == route
+
+
+def test_mult_bit_identical_one_special_prime():
+    """Bronze's partition at logN 8: one special prime, so one channel per
+    gadget part. The JAX engine (CPU path) multiplies the port's
+    ciphertext with the port's evk, carried over by interop; its words
+    equal the port's mult, which decodes."""
+    params = dict(PARAMS, num_scales=3, num_special_primes=1)
+    te = liberate_tpu_torch.CkksEngine(device="cpu", **params)
+    assert [p.alpha for p in te.ntt.parts(0)] == [1] * 4
+    sk = te.create_secret_key()
+    evk = te.create_evk(sk)
+    m = np.random.default_rng(7).uniform(-1, 1, te.num_slots)
+    ct = te.encorypt(m, te.create_public_key(sk))
+    out = te.mult(ct, ct, evk)
+    je = liberate_tpu.CkksEngine(**params)
+    ct_j = _to_jax(ct)
+    _assert_words_equal(je.mult(ct_j, ct_j, _to_jax(evk)), out)
+    assert abs(te.absmax_error(te.decrode(out, sk), m * m)) < TOL
+
+
+def test_engine_freed_on_del():
+    """An engine holds no reference cycle: ``del`` frees it (its tables and
+    keys) without the cyclic collector, which the test keeps off."""
+    te = liberate_tpu_torch.CkksEngine(device="cpu", **PARAMS)
+    sk = te.create_secret_key()
+    ct = te.encorypt(np.linspace(-1, 1, te.num_slots),
+                     te.create_public_key(sk))
+    te.mult(ct, ct, te.create_evk(sk))
+    ref = weakref.ref(te)
+    gc.disable()
+    try:
+        del te
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def _same(a, b):
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("preset, num_ordinary, num_special", [
+    ("bronze", 8, 1), ("silver", 17, 2), ("gold", 35, 4),
+    ("platinum", 73, 6)])
+def test_rns_partition_equals_jax(preset, num_ordinary, num_special):
+    """The gadget partition at each preset's prime counts (bronze: 8 parts
+    of one channel; platinum: 12 blocks of 6 and the base), host only."""
+    got = RnsPartition(num_ordinary, num_special, 1)
+    want = JaxRnsPartition(num_ordinary, num_special, 1)
+    assert vars(got).keys() == vars(want).keys()
+    for k, v in vars(want).items():
+        assert _same(getattr(got, k), v), k
+    assert got.num_partitions + 1 == {"bronze": 8, "silver": 9, "gold": 10,
+                                      "platinum": 13}[preset]
 
 
 def test_switch_routes_give_the_same_mult_words(run, monkeypatch):

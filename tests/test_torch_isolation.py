@@ -26,16 +26,28 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+_NAMES_JAX = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b)|liberate_tpu\.|"
+    r"from\s+liberate_tpu\s|import\s+liberate_tpu\b(?!_torch)",
+    re.MULTILINE)
+
+
 def test_no_source_names_jax_or_the_jax_package():
-    pattern = re.compile(
-        r"^\s*(import\s+jax\b|from\s+jax\b)|liberate_tpu\.|"
-        r"from\s+liberate_tpu\s|import\s+liberate_tpu\b(?!_torch)",
-        re.MULTILINE)
     files = sorted(PKG.rglob("*.py"))
     assert files
     offenders = [str(f.relative_to(PKG)) for f in files
-                 if pattern.search(f.read_text())]
+                 if _NAMES_JAX.search(f.read_text())]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "stage_variants.py",
+                                    "bfly_variants.py"])
+def test_card_scripts_name_no_jax(script):
+    """The scripts run on the card import neither JAX nor the JAX package;
+    they name its kernels only as file:line strings."""
+    text = (PKG.parent / script).read_text()
+    assert "liberate_tpu_torch" in text
+    assert not _NAMES_JAX.search(text)
 
 
 def test_engine_without_device_raises_when_no_cuda(monkeypatch):

@@ -12,14 +12,15 @@ and then the separate ``engine._mod_down_shoup``. Here:
 - the Shoup-key twin equals ``mxu_pallas.dispatch_ksk_from_state`` in
   interpret mode, over both width groups, on random state rows and keys;
 - the port's ``_mod_down_shoup`` equals the JAX one (tiled form) with four
-  special primes, gold's count;
+  and six special primes, gold's and platinum's counts;
 - a JAX engine with Montgomery-form keys switches a random polynomial
   with the port's evk; its words equal the port's switch with the
   Montgomery-form key, and with the Shoup-form key on both routes (the
   unfolded one forced through ``FOLD_MAX_LOGN``); the Montgomery-key twin
   equals the JAX kernel on the inputs that kernel got inside that switch;
-- with four special primes the folded and unfolded routes leave the same
-  mult words, as with two.
+- with one, four and six special primes (bronze's, gold's and
+  platinum's counts: at one the fold runs bronze's n_sp = 1) the folded
+  and unfolded routes leave the same mult words, as with two.
 
 The port's ``mult`` on the unfolded route and with the Montgomery-form key
 is held word for word against the JAX MXU engine's ``mult`` in
@@ -146,9 +147,12 @@ def port():
 
 @pytest.mark.parametrize("logN, shoup_ksk, kernel", [
     (15, True, "mxu_switch"), (16, True, "mxu_switch_inv"),
-    (8, False, "mxu_switch_inv_mont"), (16, False, "mxu_switch_inv_mont")])
+    (8, False, "mxu_switch_inv_mont"), (16, False, "mxu_switch_inv_mont"),
+    (14, True, "mxu_switch"), (17, True, "mxu_switch_inv"),
+    (14, False, "mxu_switch_inv_mont"), (17, False, "mxu_switch_inv_mont")])
 def test_switch_route(logN, shoup_ksk, kernel):
-    """#11 (fold) / #10 / #9, as the JAX engine's md_ok picks them."""
+    """#11 (fold) / #10 / #9, as the JAX engine's md_ok picks them: bronze
+    (logN 14) folds, platinum (logN 17) does not."""
     assert port_engine.switch_route(logN, shoup_ksk) == kernel
 
 
@@ -188,26 +192,31 @@ def test_shoup_key_twin_matches_pallas(port):
         assert np.array_equal(got[half].numpy(), _words(o).reshape(W, N))
 
 
-def test_mod_down_shoup_matches_jax_four_special_primes():
-    """n_sp = 4 at level 1, on random plain [0, q) rows in the tiled form
-    the JAX engine passes after the unfolded switch."""
-    params = dict(PARAMS, num_special_primes=4)
+@pytest.mark.parametrize("n_sp", [4, 6])
+def test_mod_down_shoup_matches_jax_special_primes(n_sp):
+    """n_sp = 4 (gold) and 6 (platinum) at level 1, on random plain
+    [0, q) rows in the tiled form the JAX engine passes after the
+    unfolded switch."""
+    params = dict(PARAMS, num_special_primes=n_sp)
     te = liberate_tpu_torch.CkksEngine(device="cpu", seed=SEED, **params)
     je = liberate_tpu.CkksEngine(seed=SEED, **params)
     level, N = 1, te.ctx.N
     C_sp = te.ntt.num_channels(level, -2)
     C_ord = te.ntt.num_channels(level, -1)
-    assert te.num_special == je.num_special == 4
+    assert te.num_special == je.num_special == n_sp
     q = te.pack(level, -2).q.numpy()[:, None]
     rng = np.random.default_rng(23)
     d = rng.integers(0, 1 << 62, size=(2, C_sp, N)) % q
     got = port_engine._mod_down_shoup(
         torch.from_numpy(d), te.pack(level, -2), te.pack(level, -1),
-        te.PiWs[level], te.bp_sp[level][0], 4)
-    want = jax.jit(lambda x: jax_engine._mod_down_shoup(
-        x, je.pack(level, -2), je.pack(level, -1), tuple(je.PiWs[level]),
-        je.bp_sp[level][0], 4, C_sp, C_sp, C_ord, tiled=True))(
-        _limbs(d).reshape(2, 2, C_sp, 16, 16))
+        te.PiWs[level], te.bp_sp[level][0], n_sp)
+    # Op by op: jitted alone, without the optimisation barriers of the
+    # engine's switch program, XLA fuses the removal steps into one loop
+    # that recomputes every earlier step (79 s on the CPU at n_sp = 6).
+    want = jax_engine._mod_down_shoup(
+        _limbs(d).reshape(2, 2, C_sp, 16, 16), je.pack(level, -2),
+        je.pack(level, -1), tuple(je.PiWs[level]), je.bp_sp[level][0], n_sp,
+        C_sp, C_sp, C_ord, tiled=True)
     assert got.shape == (2, C_ord, N)
     assert np.array_equal(got.numpy(), _words(want))
 
@@ -274,12 +283,15 @@ def test_switch_matches_jax_montgomery_key_engine(port, monkeypatch):
         assert np.array_equal(got[half].numpy(), _words(o).reshape(W, N))
 
 
-def test_routes_agree_with_four_special_primes():
-    """At gold's special-prime count the folded and the unfolded Shoup-key
-    routes leave the same mult words."""
+@pytest.mark.parametrize("n_sp", [1, 4, 6])
+def test_routes_agree_with_special_primes(n_sp):
+    """At bronze's, gold's and platinum's special-prime counts the folded
+    and the unfolded Shoup-key routes leave the same mult words (one
+    special prime: one channel per gadget part, the fold's n_sp = 1)."""
     te = liberate_tpu_torch.CkksEngine(
         device="cpu", use_mxu_ntt=True, seed=SEED,
-        **dict(PARAMS, num_special_primes=4))
+        **dict(PARAMS, num_special_primes=n_sp))
+    assert all(p.alpha <= n_sp for p in te.ntt.parts(0))
     sk = te.create_secret_key()
     evk = te.create_evk(sk)
     m = np.linspace(-1, 1, te.num_slots)
