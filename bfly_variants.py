@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the butterfly transforms goes, on one NVIDIA GPU.
 
-    python3 bfly_variants.py [--parent DIR] [--only NAME ...]
+    python3 bfly_variants.py [--parent DIR] [--only NAME ...] [--mulacc]
 
 Builds variants of ``liberate_tpu_torch/csrc/ntt.cu`` (into
 ``build/bfly_variants``, one nvcc per variant, all started together) and
@@ -21,6 +21,21 @@ channel counts; CUDA events behind a spin kernel, median of 100), beside
   butterflies on words made from the indices;
 - ``no_butterflies``: every butterfly reduced to two adds of its twiddle
   pair (all loads and stores kept).
+
+``--mulacc`` times the unsplit switch core ``ltt_ntt_mulacc`` (#4)
+instead, at the silver and bronze level-1 shapes (P=9, C_sp=18 at logN 15;
+P=7, C_sp=8 at logN 14; plans of the 60-bit primes), beside the split
+route on the same words (``ltt_ntt_fwd`` at B=P, then ``ltt_ksk_mulacc``):
+the port's library at the wrapper's geometry (first and last) and at a
+few cluster sizes K, part groups G and parts held a CTA
+(``MULACC_CASES``), each held bit-equal to its twin; then variants of
+``ntt_mulacc.cu`` (``MULACC_VARIANTS``: without the key loads, without the
+reads of the sums, without the products at all, without the combine
+launch, all wrong words whose times alone mean anything; the combine
+launched without programmatic dependence, the port's words) at the
+wrapper's geometry; with ``--parent DIR`` also DIR's ``ntt_mulacc.cu`` (the C
+interface of the multi-launch kernel it replaced, with its [P, C, N]
+scratch), first. ``--only NAME ...`` picks the variants.
 
 ``--parent DIR`` also builds ``DIR/liberate_tpu_torch/csrc/ntt.cu`` (an
 earlier tree with the same C interface) as ``parent`` and times it first
@@ -76,9 +91,9 @@ VARIANTS = {
          "make_ulonglong2(lo, hi);",
          "    if (lo == 12345) "
          "*reinterpret_cast<ulonglong2*>(dst + 2 * p) = v;"),
-        ("    const ulonglong2 v = "
+        ("  const ulonglong2 v = "
          "*reinterpret_cast<const ulonglong2*>(sh + (at & ~1));",
-         "    const ulonglong2 v = make_ulonglong2(at, p);"),
+         "  const ulonglong2 v = make_ulonglong2(at, p);"),
         ("        v[it][i] = "
          "src[j0 + (h + it) * blockDim.x + (long long)i * t];",
          "        v[it][i] = j0 + it + i;"),
@@ -100,31 +115,214 @@ VARIANTS = {
 }
 
 
-# The variants that compute the port's words.
-RIGHT_WORDS = ("base", "parent", "gold_k4", "threads1024", "no_swizzle")
+# (label, logN, P, C, [(K, G, held), ...], [(K, G, held), ...]): #4 at the
+# multiply's level-1 shapes, base at the first geometries and every variant
+# at the second; G None: the wrapper's own choice at that K and held.
+MULACC_CASES = [
+    ("silver P=9 C_sp=18", 15, 9, 18,
+     [(2, 3, 1), (2, None, 1), (4, None, 1), (8, None, 1), (8, 3, 1),
+      (8, None, 3)], [(8, None, 2)]),
+    ("bronze P=7 C_sp=8", 14, 7, 8,
+     [(1, None, 1), (2, None, 1), (8, None, 1), (4, None, 2)],
+     [(4, None, 1)]),
+]
 
 
-def build(out, parent=None, only=None):
-    """One library of ntt.cu per variant (those of ``only``, or all):
-    {name: path}."""
+# (old, new) edits of ntt_mulacc.cu's variants: base; the key products
+# without the key loads, without the reads of the sums (each part
+# overwrites them), or with none of them (the transforms alone); without
+# the combine launch; the combine launched plainly (no_pdl, below).
+_PRODUCTS = """      ulonglong2 r0, r1;
+      for (int j = 0; j < r; ++j) {
+        u64 lo, hi;
+        word_pair(sh + j * M, i, lo, hi);
+        const ulonglong2 e0 =
+            __ldcs(reinterpret_cast<const ulonglong2*>(kc0 + (p + j) * k_sp) +
+                   i);
+        const ulonglong2 e1 =
+            __ldcs(reinterpret_cast<const ulonglong2*>(kc1 + (p + j) * k_sp) +
+                   i);
+        const ulonglong2 t0 = make_ulonglong2(montmul(lo, e0.x, q, kq),
+                                              montmul(hi, e0.y, q, kq));
+        const ulonglong2 t1 = make_ulonglong2(montmul(lo, e1.x, q, kq),
+                                              montmul(hi, e1.y, q, kq));
+        if (j == 0) {
+          r0 = t0;
+          r1 = t1;
+        } else {
+          r0 = make_ulonglong2(cond_sub(r0.x + t0.x, q2),
+                               cond_sub(r0.y + t0.y, q2));
+          r1 = make_ulonglong2(cond_sub(r1.x + t1.x, q2),
+                               cond_sub(r1.y + t1.y, q2));
+        }
+      }
+      if (p > p0) {
+        const ulonglong2 f0 = __ldcg(s0 + i), f1 = __ldcg(s1 + i);
+        r0 = make_ulonglong2(cond_sub(f0.x + r0.x, q2),
+                             cond_sub(f0.y + r0.y, q2));
+        r1 = make_ulonglong2(cond_sub(f1.x + r1.x, q2),
+                             cond_sub(f1.y + r1.y, q2));
+      }
+      __stcg(s0 + i, r0);
+      __stcg(s1 + i, r1);"""
+MULACC_VARIANTS = {
+    "base": [],
+    "transforms_only": [(_PRODUCTS, """      u64 lo, hi;
+      word_pair(sh, i, lo, hi);
+      if (lo == 12345) __stcg(s0 + i, make_ulonglong2(lo, hi));""")],
+    "no_key_loads": [
+        ("""        const ulonglong2 e0 =
+            __ldcs(reinterpret_cast<const ulonglong2*>(kc0 + (p + j) * k_sp) +
+                   i);
+        const ulonglong2 e1 =
+            __ldcs(reinterpret_cast<const ulonglong2*>(kc1 + (p + j) * k_sp) +
+                   i);""", """        const ulonglong2 e0 = make_ulonglong2(hi, lo);
+        const ulonglong2 e1 = make_ulonglong2(lo, kq);""")],
+    "no_sum_reads": [("      if (p > p0) {\n", "      if (p < 0) {\n")],
+    "no_combine": [("  if (G > 1) {\n    const long long CN",
+                    "  if (G < 0) {\n    const long long CN")],
+}
+# the combine as a plain launch after the main kernel
+MULACC_VARIANTS["no_pdl"] = [
+    ("""    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+    cfg.blockDim = dim3(kCombineThreads, 1, 1);
+    cfg.stream = (cudaStream_t)stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    rc = (int)cudaLaunchKernelEx(&cfg, mulacc_combine, (u64*)d0, (u64*)d1,
+                                 (const u64*)part, G - 1, logN, CN,
+                                 (const u64*)q);
+    if (rc != 0) return rc;""",
+     """    mulacc_combine<<<(unsigned)blocks, kCombineThreads, 0,
+                     (cudaStream_t)stream>>>((u64*)d0, (u64*)d1,
+                                             (const u64*)part, G - 1, logN,
+                                             CN, (const u64*)q);"""),
+    ("""  asm volatile("griddepcontrol.wait;" ::: "memory");\n""", "")]
+MULACC_RIGHT_WORDS = ("base", "parent", "no_pdl")
+
+
+def mulacc_sweep(dev, gen, parent=None, only=None):
+    """#4 at each (K, G) of MULACC_CASES, the wrapper's geometry first and
+    last, beside the split route on the same words; then each variant of
+    MULACC_VARIANTS (those of ``only``, or all) and the parent's at the
+    wrapper's geometry, the parent first and last."""
+    import torch
+
+    import chip_smoke
+    from liberate_tpu_torch import _build
+    from liberate_tpu_torch.ntt import cuda_ntt
+
+    _build.build(["ntt", "ksk_mulacc", "ntt_mulacc"])
+    libs = build_variants(REPO / "build" / "bfly_variants" / "mulacc",
+                          "ntt_mulacc.cu", MULACC_VARIANTS, only, parent)
+    fns = {}
+    for name, path in libs.items():
+        f = ctypes.CDLL(str(path)).ltt_ntt_mulacc
+        P_, L_, I_ = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        # the parent's multi-launch kernel took a [P, C, N] scratch and
+        # chose its own launch
+        f.argtypes = ([P_, L_, L_, P_, I_, I_, I_, P_, P_, P_, P_, P_, P_, L_,
+                       L_, P_, P_, P_] if name == "parent"
+                      else cuda_ntt._ARGTYPES["ltt_ntt_mulacc"])
+        f.restype = ctypes.c_int
+        fns[name] = f
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, logN, P, C, grid, vgrid in MULACC_CASES:
+        plan = cuda_ntt.prime_plan(logN, C, dev)
+        N = 1 << logN
+        x, k0, k1 = (chip_smoke.random_words(plan.q, (P, C, N), gen,
+                                             lazy=True) for _ in range(3))
+        want = torch.stack(cuda_ntt.ntt_mulacc_plain(x, k0, k1, plan, 0, 0))
+        got = torch.stack(cuda_ntt.ntt_mulacc(x, k0, k1, plan, 0, 0))
+        if not torch.equal(got, want):
+            raise AssertionError(f"#4 [{label}] differs from its twin")
+        y = torch.empty_like(x)
+
+        def split():
+            return cuda_ntt.ksk_mulacc(cuda_ntt.ntt_fwd(x, plan), k0, k1,
+                                       plan, 0, 0)
+
+        for name, f in (("split route (#1 B=P, then #3)", split),
+                        ("#1 B=P alone", lambda: cuda_ntt.ntt_fwd(x, plan)),
+                        ("#3 alone",
+                         lambda: cuda_ntt.ksk_mulacc(y, k0, k1, plan, 0, 0))):
+            ms = chip_smoke.cuda_ms(f, 100)
+            print(f"{label} {name}: {ms[0]:.4f} ms (min {ms[1]:.4f}, max "
+                  f"{ms[2]:.4f})")
+        own = cuda_ntt.mulacc_geometry(logN, P, C)
+        runs = [("base", own["K"], None, own["held"]),
+                *(("base", *kgh) for kgh in grid),
+                *((n, *kgh) for n in libs if n not in ("base", "parent")
+                  for kgh in vgrid)]
+        if "parent" in libs:
+            runs = [("parent", None, None, None)] + runs
+        runs.append(("base", own["K"], None, own["held"]))
+        for name, K, G, held in runs:
+            d = torch.empty((2, C, N), dtype=torch.int64, device=dev)
+            if name == "parent":
+                scratch = torch.empty_like(x)
+                args = (scratch.data_ptr(), P, C, logN)
+                what = "parent"
+            else:
+                geo = cuda_ntt.mulacc_geometry(logN, P, C, K, G, held)
+                K, G = geo["K"], geo["G"]
+                scratch = torch.empty((max(G - 1, 1), 2, C, N),
+                                      dtype=torch.int64, device=dev)
+                args = (scratch.data_ptr(), P, G, held, C, logN,
+                        K.bit_length() - 1)
+                what = (f"{name} K={K} G={G} held={held} ({geo['ctas']} "
+                        f"CTAs of {geo['threads']} threads, "
+                        f"{geo['per_sm']} an SM)")
+
+            def run(f=fns[name], args=args, d=d, what=what,
+                    keep=scratch):
+                rc = f(x.data_ptr(), x.stride(0), x.stride(1), *args,
+                       plan.w.data_ptr(), plan.wp.data_ptr(),
+                       plan.q.data_ptr(), plan.k.data_ptr(), k0.data_ptr(),
+                       k1.data_ptr(), k0.stride(0), k0.stride(1),
+                       d[0].data_ptr(), d[1].data_ptr(), stream)
+                if rc != 0:
+                    raise RuntimeError(f"#4 {what}: launch error {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(d, want)
+            if name in MULACC_RIGHT_WORDS and not same:
+                raise AssertionError(f"#4 [{label}] {what} differs from its "
+                                     f"twin")
+            ms = chip_smoke.cuda_ms(run, 100)
+            print(f"{label} #4 {what}: {ms[0]:.4f} ms (min {ms[1]:.4f}, max "
+                  f"{ms[2]:.4f}){', bit-equal to the twin' if same else ''}")
+
+
+def build_variants(out, source, variants, only=None, parent=None):
+    """One library of csrc/``source`` per variant of ``variants`` (those of
+    ``only``, or all; always ``base``), each edit applied once to the
+    source and the headers together, and with ``parent`` (an earlier
+    tree) that tree's ``source`` as ``parent``: {name: path}."""
     from liberate_tpu_torch import _build
 
     csrc = REPO / "liberate_tpu_torch" / "csrc"
-    base = (csrc / "ntt.cu").read_text()
+    base = {f.name: f.read_text()
+            for f in [csrc / source, *sorted(csrc.glob("*.cuh"))]}
     dirs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         if only and name not in only and name != "base":
             continue
-        text = base
+        texts = dict(base)
         for old, new in edits:
-            if text.count(old) != 1:
+            hits = [f for f, t in texts.items() if old in t]
+            if len(hits) != 1 or texts[hits[0]].count(old) != 1:
                 raise RuntimeError(f"{name}: the edit {old!r} does not apply")
-            text = text.replace(old, new)
+            texts[hits[0]] = texts[hits[0]].replace(old, new)
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        for f in csrc.glob("*.cuh"):
-            shutil.copy(f, d / f.name)
-        (d / "ntt.cu").write_text(text)
+        for f, t in texts.items():
+            (d / f).write_text(t)
         dirs[name] = d
     if parent is not None:
         d = out / "parent"
@@ -133,16 +331,26 @@ def build(out, parent=None, only=None):
         dirs["parent"] = d
     procs = {name: subprocess.Popen(
         [_build.nvcc(), *_build.FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
-         str(d / "ntt.cu")], stdout=subprocess.PIPE,
+         str(d / source)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for name, d in dirs.items()}
     for name, p in procs.items():
         log = p.communicate()[0]
         if p.returncode:
-            raise RuntimeError(f"{name}: nvcc exit {p.returncode}\n{log}")
+            if name == "base":
+                raise RuntimeError(f"{name}: nvcc exit {p.returncode}\n{log}")
+            print(f"  {name}: nvcc exit {p.returncode}, left out\n"
+                  f"{log[-2000:]}")
+            del dirs[name]
+            continue
         for line in log.splitlines():
             if "spill" in line and not line.strip().startswith("0 bytes"):
                 print(f"  ptxas[{name}] {line.strip()}")
     return {name: d / "lib.so" for name, d in dirs.items()}
+
+
+def build(out, parent=None, only=None):
+    """The variants of ntt.cu (those of ``only``, or all): {name: path}."""
+    return build_variants(out, "ntt.cu", VARIANTS, only, parent)
 
 
 def main():
@@ -151,6 +359,9 @@ def main():
                                      "first and last")
     ap.add_argument("--only", nargs="*", help="the variants to build and "
                                               "time (default: all)")
+    ap.add_argument("--mulacc", action="store_true",
+                    help="time the unsplit switch core at a few cluster "
+                         "sizes and part groups instead")
     opts = ap.parse_args()
     import torch
 
@@ -165,9 +376,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
-    libs = build(REPO / "build" / "bfly_variants", opts.parent, opts.only)
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    if opts.mulacc:
+        mulacc_sweep(dev, gen, opts.parent, opts.only)
+        return 0
+    libs = build(REPO / "build" / "bfly_variants", opts.parent, opts.only)
     plans = {logN: cuda_ntt.prime_plan(logN, C, dev)
              for logN, C in ((15, 18), (16, 38))}
     # (label, logN, B, C, inverse, scalars, post_reduce): the multiply's

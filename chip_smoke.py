@@ -8,10 +8,13 @@
    nvcc for sm_90a (into ``build/liberate_tpu_torch``), one nvcc per
    source, all started together; prints ptxas's registers, stack and
    spills of every kernel entry (each instance of the tensor-core stage
-   kernel among them), holds the stage kernel's compiled geometry against
-   ``cuda_mxu.stage_geometry`` and the butterfly transforms' cluster
-   geometry against ``cuda_ntt.bfly_geometry`` at logN 8-17 (printing K,
-   the threads and the shared bytes per logN).
+   kernel among them; the butterfly kernels must not spill), holds the
+   stage kernel's compiled geometry against ``cuda_mxu.stage_geometry``,
+   the butterfly transforms' cluster geometry against
+   ``cuda_ntt.bfly_geometry`` at logN 8-17 and the unsplit switch core's
+   against ``cuda_ntt.mulacc_geometry`` at logN 8-15 and K = 1-8 (printing
+   K, the threads and the shared bytes per logN, and the part groups at
+   the silver and bronze shapes).
 3. Times the tensor-core (MXU) table build at silver, without and with
    the disk cache.
 4. Holds every kernel against its plain PyTorch twin on the same CUDA
@@ -33,7 +36,9 @@
    platinum engine. Beside each ``ntt_fwd``/``ntt_inv`` time it prints the
    same kernel's time with a cold L2 (a 128 MB scratch written before each
    launch) and that of ``x.clone()`` of its input, a yardstick of the
-   memory floor that the port never calls.
+   memory floor that the port never calls; beside each ``ntt_mulacc``
+   time that of the split route on the same words (``ntt_fwd`` at B=P,
+   then ``ksk_mulacc``), its yardstick.
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
    one seed, in both NTT domains, with the Montgomery-form key and with the
    unsplit butterfly switch: the keys and ciphertexts must be identical
@@ -46,13 +51,17 @@
    (``use_shoup_ksk=False``), and at gold in each domain: the multiply must
    launch the kernels of its path, the path no other kernel (the switch
    kernels are those ``butterfly_switch_route`` and ``switch_route``
-   name), and the decoded error must be < 1e-4; then the standalone key
-   switch on the unsplit engine (``mult(relin=False)``, ``relinearize``,
-   ``square``, ``switch_key`` to a second key) and the tensor-core switch
+   name), and the decoded error must be < 1e-4; the unsplit engine's mult
+   of the split path's ciphertexts must equal the split mult word for
+   word, and the two engines' mults are timed in turns (the host gap);
+   then the standalone key switch on the unsplit engine
+   (``mult(relin=False)``, ``relinearize``, ``square``, ``switch_key`` to a
+   second key) and the tensor-core switch
    core from extension words (``_extend_shoup``, ``dispatch_ksk_accum``
    with and without ``fold_inverse``, ``_mod_down_shoup``) held word for
    word against the engine's own switch. Times each path's operation
-   (median of 7) and profiles one; prints each path's peak device memory.
+   (median of 7) and profiles one (device time by kernel, host time by
+   operator); prints each path's peak device memory.
 7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
    six special primes), one preset after the other, each preset's
    engines freed before the next: the engines' start (the context cold
@@ -64,7 +73,8 @@
    bronze, #10 at platinum, and #9 with the Montgomery-form key); at
    platinum the split of #10 and #5 by launch; the paths butterfly,
    tensor-core and, at platinum, tensor-core with the Montgomery-form
-   key, as in 6.
+   key, as in 6; at bronze also the unsplit butterfly path
+   (``ntt_mulacc``), its mult held against the split one as in 6.
 8. Prints the script's time, the card line, the kernels' JSON line and,
    last, the result line.
 
@@ -102,6 +112,8 @@ BARRETT_MULS = 4 + 3        # mulhi(x, bp), hi*q
 MONT_MULS = 4 + 3 + 4       # a*b (128 bit), m = lo*k, m*q (128 bit)
 # Spin ahead of each timed call: ~1 ms at the H100's 1.98 GHz boost clock.
 SPIN_CYCLES = 2_000_000
+# The kernel launches of one mult of an unsplit butterfly engine.
+UNSPLIT_PER_MULT = dict(ntt_fwd=1, ntt_mulacc=1, ntt_inv=2, ksk_mulacc=0)
 SMALL = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
              is_secured=False, seed=SEED)
 
@@ -297,22 +309,25 @@ def check_launches(label, path, own, rows):
 
 
 def time_and_profile(label, op, fn):
-    """Times fn() (host clock, median of 7 after one warm-up) and profiles
-    three calls (torch.profiler; single stream, so kernel times add up to
-    the busy time)."""
+    """Times fn() (host clock, median of 7 after one warm-up, with the time
+    Python's cyclic collector took in them) and profiles three calls
+    (torch.profiler; single stream, so kernel times add up to the busy
+    time; the host's self time by operator)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     times = []
     fn()
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
+    with GcClock() as clock:
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
     print(f"{label} {op}: median {statistics.median(times):.3f} ms over "
-          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f})")
+          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}); "
+          f"in them {clock}")
 
     reps = 3
     torch.cuda.synchronize()
@@ -337,6 +352,18 @@ def time_and_profile(label, op, fn):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/{op} "
               f"x{e.count // reps} {e.key[:100]}")
+    # The host side: the self CPU time of PyTorch's operators and the CUDA
+    # runtime calls (the rest of the wall is Python outside them).
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    in_ops = sum(e.self_cpu_time_total for e in host) / 1e3 / reps
+    print(f"  host ({label}): {in_ops:.3f} ms/{op} self CPU time in "
+          f"{sum(e.count for e in host) // reps} operator and runtime "
+          f"calls, {wall - in_ops:.3f} ms/{op} of the wall outside them; "
+          f"the most:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
+        print(f"    {e.self_cpu_time_total / 1e3 / reps:.4f} ms/{op} "
+              f"x{e.count // reps} {e.key[:80]}")
 
 
 def launch_split(label, fn, roles, groups, reps=20):
@@ -488,6 +515,46 @@ def bfly_geometry_check():
               f"{out[5]} teams")
 
 
+def mulacc_geometry_check():
+    """The unsplit switch core's launch as compiled
+    (ltt_ntt_mulacc_geometry) against ntt/cuda_ntt.py's mulacc_geometry at
+    logN 8-15 and K = 1-8: the same ints where the model says the kernel
+    takes the geometry, a refusal where it does not."""
+    import ctypes
+
+    from liberate_tpu_torch import _build
+    from liberate_tpu_torch.ntt import cuda_ntt
+
+    fn = _build.load("ntt_mulacc").ltt_ntt_mulacc_geometry
+    fn.argtypes = cuda_ntt._ARGTYPES["ltt_ntt_mulacc_geometry"]
+    for logN in range(cuda_ntt.MIN_LOGN, cuda_ntt.MULACC_MAX_LOGN + 1):
+        for K in (1, 2, 4, 8):
+            out = (ctypes.c_int * 16)()
+            rc = fn(logN, K.bit_length() - 1, out)
+            g = cuda_ntt.mulacc_geometry(logN, 1, 1, K, held=1)
+            if g["takes"] != (rc == 0):
+                raise AssertionError(f"mulacc geometry at logN {logN} K={K}: "
+                                     f"kernel rc {rc}, model takes "
+                                     f"{g['takes']}")
+            want = [g["K"], g["threads"], g["smem"], len(g["cross"]),
+                    len(g["groups"]), g["teams"],
+                    *(v for grp in g["groups"] for v in grp)]
+            if rc == 0 and list(out)[:len(want)] != want:
+                raise AssertionError(f"mulacc geometry at logN {logN} K={K}: "
+                                     f"kernel {list(out)}, model {want}")
+        own = cuda_ntt.mulacc_geometry(logN, 1, 1)
+        print(f"  unsplit switch core geometry logN {logN}: clusters of "
+              f"K={own['K']} CTAs, {own['threads']} threads, {own['held']} "
+              f"parts held, {own['smem']} shared bytes per CTA, "
+              f"{own['per_sm']} CTAs an SM (every K the kernel takes agrees "
+              f"with the model)")
+    for label, logN, P, C in (("silver", 15, 9, 18), ("bronze", 14, 7, 8)):
+        g = cuda_ntt.mulacc_geometry(logN, P, C)
+        print(f"  unsplit switch core at {label} level 1 (P={P}, C_sp={C}): "
+              f"K={g['K']}, G={g['G']} part groups {g['parts']}, "
+              f"{g['held']} held, {g['ctas']} CTAs")
+
+
 def transform_bound(x, logN, muls_extra):
     """The bound of one butterfly transform of x [B, C, N]: the words read
     and written once and the channel's twiddles and quotients once; N/2 *
@@ -584,7 +651,7 @@ def drive_path(eng, label, rows, per_mult=None):
     launched every kernel of the engine's domain and switch route (exactly
     ``per_mult`` launches where given) and that the path launched no other.
     Times mult, profiles one and prints the path's peak device memory.
-    Returns (sk, pk, evk)."""
+    Returns {"keys": (sk, pk, evk), "cts": (ct1, ct2), "out": the mult}."""
     import torch
 
     own = own_kernels(eng)
@@ -627,7 +694,77 @@ def drive_path(eng, label, rows, per_mult=None):
     print(f"{label} path: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"({held / 1e9:.2f} GB held by the engine before the path)")
-    return sk, pk, evk
+    return {"keys": (sk, pk, evk), "cts": (ct1, ct2), "out": ctm}
+
+
+def unsplit_equals_split(label, eng_unsplit, split):
+    """The unsplit engine's mult (#4) of the split path's ciphertexts under
+    its evk against the split path's mult (#1 then #3), word for word."""
+    import torch
+
+    ct1, ct2 = split["cts"]
+    got = eng_unsplit.mult(ct1, ct2, split["keys"][2])
+    same = all(torch.equal(a, b) for a, b in zip(got.data, split["out"].data))
+    print(f"{label}: the unsplit mult of the split path's ciphertexts "
+          f"{'equals' if same else 'DIFFERS from'} the split mult word for "
+          f"word")
+    if not same:
+        raise AssertionError(f"{label}: unsplit and split mults differ")
+
+
+class GcClock:
+    """Python's cyclic collector while it is a gc callback: the
+    collections it ran (full ones apart) and the seconds they took."""
+
+    def __init__(self):
+        self.runs = self.full = 0
+        self.seconds = 0.0
+        self._t = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.runs += 1
+            self.full += info["generation"] == 2
+            self.seconds += time.perf_counter() - self._t
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self)
+
+    def __str__(self):
+        return (f"the cyclic collector ran {self.runs} times ({self.full} "
+                f"full), {self.seconds * 1e3:.1f} ms in all")
+
+
+def host_gap(label, runs):
+    """Host-clock mult times of engines in turns (each run: (name, engine,
+    drive_path's result)), 7 each, in the order given then reversed: a
+    difference that follows the engine and not the moment of the call."""
+    import torch
+
+    times = {name: [] for name, _, _ in runs}
+    with GcClock() as clock:
+        for name, eng, run in runs + runs[::-1]:
+            ct1, ct2 = run["cts"]
+            eng.mult(ct1, ct2, run["keys"][2])
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.mult(ct1, ct2, run["keys"][2])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+    print(f"{label} in turns: " + "; ".join(
+        f"{name} median {statistics.median(v):.3f} ms (min {min(v):.3f}, "
+        f"max {max(v):.3f})" for name, v in times.items()) + f"; {clock}")
 
 
 def standalone_switch_path(eng, keys, label, rows):
@@ -826,6 +963,14 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
                    library, (scratch, args[0]) if name in ("ntt_fwd",
                                                            "ntt_inv")
                    else None)
+        if name == "ntt_mulacc":
+            x, plan = args[0], args[3]
+            split = cuda_ms(lambda: cuda_ntt.ksk_mulacc(
+                cuda_ntt.ntt_fwd(x, plan), *args[1:]), 100)
+            print(f"  ntt_mulacc [{preset} {label}]: yardstick, the split "
+                  f"route on the same words (ntt_fwd B={P}, then "
+                  f"ksk_mulacc) {split[0]:.4f} ms (min {split[1]:.4f}, max "
+                  f"{split[2]:.4f})")
 
     # The tensor-core kernels at the shapes of the MXU mult.
     mpack = eng_mxu.pack(level, -1)
@@ -953,12 +1098,14 @@ def preset_phase(preset, dev, gen, rows, scratch):
     butterfly and tensor-core engines from the cached context and
     tables), every kernel of their multiply against its twin, the split
     of #10 and #5 by launch (platinum), and the paths with the launch
-    counters zeroed: butterfly, tensor-core and, at platinum, the
-    tensor-core engine with the Montgomery-form key. Each engine is freed
-    after its path."""
+    counters zeroed: butterfly, at bronze butterfly unsplit (its mult held
+    word for word against the butterfly one), tensor-core and, at
+    platinum, the tensor-core engine with the Montgomery-form key. Each
+    engine is freed after its path."""
     import torch
 
     import liberate_tpu_torch
+    from liberate_tpu_torch.fhe.engine import FUSED_SWITCH_MAX_LOGN
 
     t0 = time.perf_counter()
     params = liberate_tpu_torch.params[preset]
@@ -975,8 +1122,17 @@ def preset_phase(preset, dev, gen, rows, scratch):
     kernel_phase(preset, eng, eng_mxu, gen, rows, False, scratch)
     if preset == "platinum":
         split_phase(eng_mxu, gen)
-    drive_path(eng, f"{preset} butterfly", rows)
+    split = drive_path(eng, f"{preset} butterfly", rows)
     del eng
+    if params["logN"] <= FUSED_SWITCH_MAX_LOGN:
+        eng_unsplit = liberate_tpu_torch.CkksEngine(
+            **params, seed=SEED, use_split_switch=False)
+        drive_path(eng_unsplit, f"{preset} butterfly unsplit", rows,
+                   per_mult=UNSPLIT_PER_MULT)
+        unsplit_equals_split(f"{preset} butterfly unsplit", eng_unsplit,
+                             split)
+        del eng_unsplit
+    del split
     drive_path(eng_mxu, f"{preset} MXU", rows)
     del eng_mxu
     if preset == "platinum":
@@ -1030,10 +1186,12 @@ def main():
     libs = _build.build()
     print(f"build: {time.perf_counter() - t:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
+    spilled = []
     for name, p in libs.items():
         # One line per kernel: its (mangled) entry, ptxas's registers and
         # shared memory, and its stack and spills; and every ptxas warning
-        # (a serialised wgmma, an ignored setmaxnreg).
+        # (a serialised wgmma, an ignored setmaxnreg). The butterfly kernels
+        # must not spill.
         log = p.with_suffix(".log")
         entry = spill = None
         for line in (log.read_text().splitlines() if log.exists() else ()):
@@ -1044,10 +1202,17 @@ def main():
             elif "registers" in line and entry:
                 print(f"  ptxas[{name}] {entry}: "
                       f"{line.split(':', 1)[1].strip()}; {spill}")
+                if name in ("ntt", "ksk_mulacc", "ntt_mulacc") and not (
+                        spill and spill.endswith(
+                            " 0 bytes spill stores, 0 bytes spill loads")):
+                    spilled.append(f"{name} {entry}: {spill}")
             elif "warning" in line.lower():
                 print(f"  ptxas[{name}] {line.strip()}")
+    if spilled:
+        raise AssertionError("butterfly kernels spill: " + "; ".join(spilled))
     geometry_check()
     bfly_geometry_check()
+    mulacc_geometry_check()
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1126,22 +1291,26 @@ def main():
 
     # -- 6. the paths through the public API -------------------------------------
     eng, eng_mxu = engines["silver"]
-    drive_path(eng, "silver butterfly", rows)
+    split = drive_path(eng, "silver butterfly", rows)
     drive_path(eng_mxu, "silver MXU", rows)
     eng_mont = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED, use_mxu_ntt=True,
         use_shoup_ksk=False)
-    _, _, evk_mont = drive_path(eng_mont, "silver MXU Montgomery-key", rows)
+    evk_mont = drive_path(eng_mont, "silver MXU Montgomery-key",
+                          rows)["keys"][2]
     switch_core_path(eng_mont, evk_mont, gen, "silver MXU switch core", rows)
     eng_unsplit = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED,
         use_split_switch=False)
-    keys = drive_path(eng_unsplit, "silver butterfly unsplit", rows,
-                      per_mult=dict(ntt_fwd=1, ntt_mulacc=1, ntt_inv=2,
-                                    ksk_mulacc=0))
-    standalone_switch_path(eng_unsplit, keys, "silver standalone switch",
-                           rows)
-    del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, keys, engines["silver"]
+    unsplit = drive_path(eng_unsplit, "silver butterfly unsplit", rows,
+                         per_mult=UNSPLIT_PER_MULT)
+    unsplit_equals_split("silver butterfly unsplit", eng_unsplit, split)
+    host_gap("silver butterfly mult, split and unsplit engines",
+             [("split", eng, split), ("unsplit", eng_unsplit, unsplit)])
+    standalone_switch_path(eng_unsplit, unsplit["keys"],
+                           "silver standalone switch", rows)
+    del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, split, unsplit
+    del engines["silver"]
     eng, eng_mxu = engines.pop("gold")
     drive_path(eng, "gold butterfly", rows)
     drive_path(eng_mxu, "gold MXU", rows)

@@ -15,6 +15,8 @@ Four kernels (sources in ``liberate_tpu_torch/csrc``):
   in one kernel, the unsplit switch core (replaces
   ``pallas_ntt._ntt_mulacc_kernel`` without its canon pre-stage: the
   port's basis extension is the Shoup one, already unsigned [0, 2q)).
+  It runs ``ntt_fwd``'s cluster transform with the key products as its
+  epilogue, the parts in G groups of clusters (``mulacc_geometry``).
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
@@ -83,6 +85,55 @@ def bfly_geometry(logN, K=None):
                 groups=([(logK, first)] if fold != first else [])
                 + [(logK + r0, PASS) for r0 in range(first, logM, PASS)],
                 teams=min(max(1, threads // TEAM_THREADS), 1 << first))
+
+
+# The unsplit switch core's launch (csrc/ntt_mulacc.cu): logN up to
+# MULACC_MAX_LOGN (the engine's FUSED_SWITCH_MAX_LOGN), clusters of
+# MULACC_K[logN] CTAs (else 1), each holding MULACC_HELD[logN] parts'
+# chunks at once (else 1), chosen by bfly_variants.py --mulacc on the H100.
+# A CTA of t threads holds 128 registers a thread, so at most
+# MAX_THREADS // t of them fit an SM, and as many as its SM_SMEM bytes of
+# shared memory hold (1 KB of them reserved a CTA).
+MULACC_MAX_LOGN = 15
+MULACC_K = {14: 4, 15: 8}
+MULACC_HELD = {15: 2}
+MULACC_MAX_HELD = 4
+MAX_THREADS = 512
+SMEM_PER_CTA = 232448
+SM_SMEM = 233472
+
+
+def mulacc_geometry(logN, P, C, K=None, G=None, held=None):
+    """The launch of the unsplit switch core (``ntt_mulacc``) on P parts of
+    C channels at logN, as its wrapper chooses it (or with K CTAs a
+    cluster, G part groups and ``held`` parts' chunks a CTA forced: a model
+    only): ``bfly_geometry``'s transform at that K (``smem`` for all the
+    chunks held), plus G (by default P / held, rounded up), the part groups
+    ``parts`` ((first, end) of each, in group order), ``columns``
+    (cross-chunk columns a thread), ``ctas`` (G * K * C), ``per_sm`` (CTAs
+    an SM holds) and ``takes`` (whether the kernel launches it: chunks of
+    at most 2^LOG_CHUNK words within a CTA's shared memory, at least one
+    column a thread, at most MULACC_MAX_HELD chunks).
+    """
+    if not MIN_LOGN <= logN <= MULACC_MAX_LOGN:
+        raise ValueError(f"ntt_mulacc: the kernel takes logN {MIN_LOGN}-"
+                         f"{MULACC_MAX_LOGN}, not {logN}")
+    geo = bfly_geometry(logN, MULACC_K.get(logN, 1) if K is None else K)
+    K = geo["K"]
+    held = MULACC_HELD.get(logN, 1) if held is None else held
+    G = -(-P // held) if G is None else G
+    if not 1 <= G <= P:
+        raise ValueError(f"ntt_mulacc: {G} part groups of {P} parts")
+    columns = ((1 << geo["logM"]) >> geo["fold"]) // K // geo["threads"]
+    smem = held * geo["smem"]
+    geo.update(G=G, held=held, smem=smem,
+               parts=[(g * P // G, (g + 1) * P // G) for g in range(G)],
+               columns=columns, ctas=G * K * C,
+               per_sm=min(MAX_THREADS // geo["threads"],
+                          SM_SMEM // (smem + 1024)),
+               takes=geo["logM"] <= LOG_CHUNK and columns >= 1
+               and 1 <= held <= MULACC_MAX_HELD and smem <= SMEM_PER_CTA)
+    return geo
 
 
 def reset_launches():
@@ -259,8 +310,9 @@ _ARGTYPES = {
     "ltt_ntt_geometry": [_I, ctypes.POINTER(_I)],
     "ltt_ksk_mulacc": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
                        _P],
-    "ltt_ntt_mulacc": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L,
-                       _L, _P, _P, _P],
+    "ltt_ntt_mulacc": [_P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _P, _P, _L, _L, _P, _P, _P],
+    "ltt_ntt_mulacc_geometry": [_I, _I, ctypes.POINTER(_I)],
 }
 
 
@@ -283,7 +335,7 @@ def _check_cuda(x, *tables):
 
 
 _LAUNCH_ERRORS = {
-    -1: f"logN outside {MIN_LOGN}-{MAX_LOGN}",
+    -1: "a logN, cluster or part grouping the kernel does not take",
     -2: "its cluster of CTAs cannot be scheduled on this device",
 }
 
@@ -414,24 +466,35 @@ def ksk_mulacc(x, k0, k1, plan, level, part_off):
 def ntt_mulacc(x, k0, k1, plan, level, part_off):
     """The unsplit switch core (see ntt_mulacc_plain): x [P, C, N] lazy
     [0, 2q) extension words in, (d0, d1) [C, N] out. The key stacks are
-    read in place through their strides."""
+    read in place through their strides (16-byte aligned with even strides
+    on the card). logN 8 to MULACC_MAX_LOGN."""
     k0v, k1v = _check_switch_core("ntt_mulacc", x, k0, k1, plan, level,
                                   part_off)
+    P, C, N = x.shape
+    if not MIN_LOGN <= plan.logN <= MULACC_MAX_LOGN:
+        raise ValueError(f"ntt_mulacc: the kernel takes logN {MIN_LOGN}-"
+                         f"{MULACC_MAX_LOGN}, not {plan.logN}")
     if _device_kind(x) == "cpu":
         return ntt_mulacc_plain(x, k0, k1, plan, level, part_off)
     _check_cuda(x, plan.w, plan.wp)
-    P, C, N = x.shape
-    scratch = torch.empty((P, C, N), dtype=torch.int64, device=x.device)
-    d0 = torch.empty((C, N), dtype=torch.int64, device=x.device)
-    d1 = torch.empty_like(d0)
+    if k0v.data_ptr() % 16 or k1v.data_ptr() % 16 \
+            or any(s % 2 for s in k0v.stride()[:2]):
+        raise ValueError("ntt_mulacc: the kernel reads the keys in 16-byte "
+                         "words: 16-byte aligned views with even part and "
+                         "channel strides")
+    geo = mulacc_geometry(plan.logN, P, C)
+    G, K = geo["G"], geo["K"]
+    d = torch.empty((2, C, N), dtype=torch.int64, device=x.device)
+    part = torch.empty((G - 1, 2, C, N), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _fn("ntt_mulacc", "ltt_ntt_mulacc")(
-            x.data_ptr(), x.stride(0), x.stride(1), scratch.data_ptr(), P, C,
-            plan.logN, plan.w.data_ptr(), plan.wp.data_ptr(),
-            plan.q.data_ptr(), plan.k.data_ptr(), k0v.data_ptr(),
-            k1v.data_ptr(), k0v.stride(0), k0v.stride(1), d0.data_ptr(),
-            d1.data_ptr(), stream)
+            x.data_ptr(), x.stride(0), x.stride(1), part.data_ptr(), P, G,
+            geo["held"], C, plan.logN, K.bit_length() - 1,
+            plan.w.data_ptr(), plan.wp.data_ptr(), plan.q.data_ptr(),
+            plan.k.data_ptr(), k0v.data_ptr(), k1v.data_ptr(),
+            k0v.stride(0), k0v.stride(1), d[0].data_ptr(), d[1].data_ptr(),
+            stream)
     _raise_on(rc, "ntt_mulacc")
     launches["ntt_mulacc"] += 1
-    return d0, d1
+    return d[0], d[1]

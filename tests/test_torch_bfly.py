@@ -105,11 +105,14 @@ def _columns(geo):
     return t, W, i >> fold, _swz(offset)
 
 
-def replay_fwd(x, plan, geo, pre_enter=False, post_reduce=False):
+def replay_fwd(x, plan, geo, pre_enter=False, post_reduce=False,
+               smem=False):
     """The forward kernel's phases on x [B, C, N]: per column the W words,
     entered and through the cross-chunk stages, each written to its CTA's
     shared memory; then the local passes, the last one's neighbouring
-    words to the output."""
+    words to the output. ``smem``: return instead what the last pass
+    leaves in each CTA's shared memory, [B, C, K, M], word i of a chunk
+    at swz(i) (bfly.cuh fwd_chunk)."""
     B, C, N = x.shape
     K, M = geo["K"], 1 << geo["logM"]
     t, W, chunk, offset = _columns(geo)
@@ -126,14 +129,14 @@ def replay_fwd(x, plan, geo, pre_enter=False, post_reduce=False):
         idx, blk, logt = _local(geo, s, R)
         y = _group(sh[..., _swz(idx)], s, blk, R, True, plan.w, plan.wp,
                    plan.q)
-        if n < len(geo["groups"]) - 1:
+        if smem or n < len(geo["groups"]) - 1:
             sh[..., _swz(idx)] = y
         else:
             assert (R, logt) == (PASS, 0)
             if post_reduce:
                 y = cuda_ntt._cond_sub(y, plan.q[:, None, None, None])
             out[..., idx] = y
-    return out.reshape(B, C, N)
+    return sh if smem else out.reshape(B, C, N)
 
 
 def replay_inv(x, plan, geo, post_exit=False, post_reduce=False):
