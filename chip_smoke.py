@@ -38,11 +38,18 @@
    launch) and that of ``x.clone()`` of its input, a yardstick of the
    memory floor that the port never calls; beside each ``ntt_mulacc``
    time that of the split route on the same words (``ntt_fwd`` at B=P,
-   then ``ksk_mulacc``), its yardstick.
+   then ``ksk_mulacc``), its yardstick. At silver and gold also the B=1
+   transforms the other operations add (``ops_kernel_phase``): the
+   rotation key's inverse and forward of the level-0 secret key without
+   the Montgomery exit or entry, and ``mc_mult``'s at level 1, in both
+   domains.
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
    one seed, in both NTT domains, with the Montgomery-form key and with the
    unsplit butterfly switch: the keys and ciphertexts must be identical
-   words.
+   words, and so must those of every other operation of the engine
+   (``small_ops``: rotation, conjugation and Galois keys, add, sub,
+   negate, the scalar and message operations, the switch of an NTT-state
+   ciphertext, the rotations, sum, mean, cov, var, pow, sqrt).
 6. Drives the paths through the public API, each with the launch counters
    zeroed just before: keygen -> 2 x encorypt -> mult -> decrode at silver
    in each domain, with the unsplit butterfly switch
@@ -61,7 +68,16 @@
    with and without ``fold_inverse``, ``_mod_down_shoup``) held word for
    word against the engine's own switch. Times each path's operation
    (median of 7) and profiles one (device time by kernel, host time by
-   operator); prints each path's peak device memory.
+   operator); prints each path's peak device memory. After each path's
+   mult at silver and gold, ``ops_phase`` on its keys and ciphertexts:
+   rotation and conjugation keys, add, sub, negate, mult by a float, an
+   int and a message, add of a float and of a message, rotate_single and
+   conjugate, each with the counters zeroed (decoded error < 1e-4; each
+   launches exactly its kernels, a rotation those of the switch route),
+   timed a line each; at silver ``galois_phase`` in both domains (the
+   Galois key, rotate_galois, sum, mean, cov, var, pow, sqrt; decoded
+   error < 1e-3, sqrt < 0.05) and ``rotate_check`` of the unsplit and
+   Montgomery-key routes against the others' words.
 7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
    six special primes), one preset after the other, each preset's
    engines freed before the next: the engines' start (the context cold
@@ -71,12 +87,16 @@
    shapes (the butterfly #1-#3, #4 at bronze, the tensor-core transforms
    #5 and #6, the Shoup key's switch: #11 in both modes with n_sp = 1 at
    bronze, #10 at platinum, and #9 with the Montgomery-form key); at
-   platinum the split of #10 and #5 by launch; the paths butterfly,
-   tensor-core and, at platinum, tensor-core with the Montgomery-form
-   key, as in 6; at bronze also the unsplit butterfly path
-   (``ntt_mulacc``), its mult held against the split one as in 6.
+   platinum the split of #10 and #5 by launch (in a fresh process); the
+   paths butterfly, tensor-core and, at platinum, tensor-core with the
+   Montgomery-form key, as in 6; at bronze also the unsplit butterfly path
+   (``ntt_mulacc``), its mult held against the split one as in 6; after
+   the butterfly and tensor-core paths ``ops_phase`` untimed.
 8. Prints the script's time, the card line, the kernels' JSON line and,
    last, the result line.
+
+``--split-only PRESET`` runs only the split by launch at the preset; the
+script runs platinum's so, in a process of its own.
 
 ``--compile-yardstick`` also times ``torch.compile`` of the
 ``ksk_mulacc`` twin as that kernel's ``library_ms`` (the compile takes
@@ -308,11 +328,24 @@ def check_launches(label, path, own, rows):
             raise AssertionError(f"the {label} path launched {k}")
 
 
-def time_and_profile(label, op, fn):
+def lead_in():
+    """The first thing in a profiled window: a spin kernel of about 1 ms,
+    then 30 ms on the host before the work is launched. Without the wait
+    the profiler kept no kernel of a 0.2 ms window at gold (three calls of
+    ``add``); the platinum launch splits lose about half their calls with
+    it or without it."""
+    import torch
+
+    torch.cuda._sleep(SPIN_CYCLES)
+    time.sleep(0.03)
+
+
+def time_and_profile(label, op, fn, brief=False):
     """Times fn() (host clock, median of 7 after one warm-up, with the time
     Python's cyclic collector took in them) and profiles three calls
     (torch.profiler; single stream, so kernel times add up to the busy
-    time; the host's self time by operator)."""
+    time; the host's self time by operator). ``brief``: one line, without
+    the kernels' and the host's top lists."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -325,29 +358,43 @@ def time_and_profile(label, op, fn):
             fn()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-    print(f"{label} {op}: median {statistics.median(times):.3f} ms over "
-          f"{len(times)} runs (min {min(times):.3f}, max {max(times):.3f}); "
-          f"in them {clock}")
+    wall_line = (f"median {statistics.median(times):.3f} ms over "
+                 f"{len(times)} runs (min {min(times):.3f}, max "
+                 f"{max(times):.3f})")
+    if not brief:
+        print(f"{label} {op}: {wall_line}; in them {clock}")
 
     reps = 3
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not brief:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        lead_in()
         t = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / reps
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.key]
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
     torch_ops = [e for e in kern if "at::native" in e.key
                  or e.key.startswith(("Memcpy", "Memset"))]
     ops_ms = sum(e.self_device_time_total for e in torch_ops) / 1e3 / reps
+    n_ops = sum(e.count for e in torch_ops) // reps
+    if brief:
+        print(f"timing {label} {op}: wall {wall_line}; device busy "
+              f"{busy:.3f} ms/{op}: PyTorch's kernels {ops_ms:.3f} ms in "
+              f"{n_ops} launches, the port's {busy - ops_ms:.3f} ms "
+              f"({sum(e.count for e in kern) // reps - n_ops} launches); "
+              f"{clock}")
+        return
     print(f"profile ({label}): {wall:.3f} ms/{op} wall with the profiler "
           f"on, device busy {busy:.3f} ms/{op} ({len(kern)} kernel names): "
           f"PyTorch's own kernels {ops_ms:.3f} ms/{op} in "
-          f"{sum(e.count for e in torch_ops) // reps} launches, the port's "
+          f"{n_ops} launches, the port's "
           f"{busy - ops_ms:.3f} ms/{op}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3 / reps:.4f} ms/{op} "
@@ -385,9 +432,7 @@ def launch_split(label, fn, roles, groups, reps=20):
     while tried < 3 * reps and sum(len(k) == per for k in calls) < reps:
         tried += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # The profiler may miss the first kernels it traces: a spin
-            # kernel of about 1 ms goes first.
-            torch.cuda._sleep(SPIN_CYCLES)
+            lead_in()
             fn()
             torch.cuda.synchronize()
         calls.append(sorted(
@@ -632,17 +677,8 @@ def messages(eng):
 
 def own_kernels(eng):
     """The kernels of the engine's multiply: its domain's transforms and
-    the switch kernel of its route."""
-    from liberate_tpu_torch.fhe.engine import butterfly_switch_route, \
-        switch_route
-
-    if eng.use_mxu_ntt:
-        return ["mxu_ntt_fwd", "mxu_ntt_inv",
-                switch_route(eng.ctx.logN, eng.use_shoup_ksk)]
-    route = butterfly_switch_route(eng.ctx.logN, eng.use_split_switch)
-    return ["ntt_fwd", "ntt_inv"] + {"split": ["ksk_mulacc"],
-                                     "fused": ["ntt_mulacc"],
-                                     "composed": []}[route]
+    the kernels of its switch route."""
+    return list(dict.fromkeys(transforms(eng) + switch_kernels(eng)))
 
 
 def drive_path(eng, label, rows, per_mult=None):
@@ -801,6 +837,297 @@ def standalone_switch_path(eng, keys, label, rows):
                              f"differs from mult")
     check_launches(label, path, own_kernels(eng), rows)
     time_and_profile(label, "switch_key", lambda: eng.switch_key(ct1, ksk))
+
+
+def switch_kernels(eng):
+    """The kernels of one key switch on the engine's route: the tensor-core
+    switch kernel of ``switch_route``, or the butterfly core of
+    ``butterfly_switch_route`` with the inverse transform (and, but on the
+    fused route, the forward transform of the parts)."""
+    from liberate_tpu_torch.fhe.engine import butterfly_switch_route, \
+        switch_route
+
+    if eng.use_mxu_ntt:
+        return [switch_route(eng.ctx.logN, eng.use_shoup_ksk)]
+    return {"split": ["ntt_fwd", "ksk_mulacc", "ntt_inv"],
+            "fused": ["ntt_mulacc", "ntt_inv"],
+            "composed": ["ntt_fwd", "ntt_inv"]}[
+        butterfly_switch_route(eng.ctx.logN, eng.use_split_switch)]
+
+
+def transforms(eng):
+    """The engine's domain's forward and inverse transform kernels."""
+    return (["mxu_ntt_fwd", "mxu_ntt_inv"] if eng.use_mxu_ntt
+            else ["ntt_fwd", "ntt_inv"])
+
+
+def tensors(x):
+    """The tensors of a DataStruct, tuple or list, nested or not."""
+    if hasattr(x, "data") and not hasattr(x, "numel"):
+        return tensors(x.data)
+    if isinstance(x, (tuple, list)):
+        return [t for d in x for t in tensors(d)]
+    return [x]
+
+
+def nbytes(x):
+    return sum(t.numel() * t.element_size() for t in tensors(x))
+
+
+def ops_phase(eng, label, run, rows, timed=False):
+    """The single-party operations beside the multiply, on drive_path's
+    keys and ciphertexts at level 1 (a: the mult's output, m1 m2; b: ct2
+    levelled up, m2), each with the launch counters zeroed just before and
+    read just after: the rotation (delta 1) and conjugation keys (the
+    domain's transforms, no other kernel); add, sub, negate, mult by a
+    float, an int and a message, add of a float and of a message (no
+    kernel, but the message mult's transforms); rotate_single and
+    conjugate (exactly the kernels of the engine's switch route). Each
+    decoded error < 1e-4 against numpy. With ``timed`` the times of
+    rotate_single, conjugate, add, mult_scalar and mc_mult, a line each.
+    Prints the phase's peak device memory, the keys included. Returns the
+    operand a, the keys and the outputs."""
+    import numpy as np
+    import torch
+
+    sk, pk, evk = run["keys"]
+    m1, m2 = messages(eng)
+    a, ma = run["out"], m1 * m2
+    b = eng.level_up(run["cts"][1], a.level)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t = time.perf_counter()
+    rotk = eng.create_rotation_key(sk, 1)
+    conjk = eng.create_conjugation_key(sk)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t
+    check_launches(f"{label} rotation keys", counters(), transforms(eng),
+                   rows)
+    switch = switch_kernels(eng)
+    ops = {
+        "add": (lambda: eng.add(a, b), ma + m2, []),
+        "sub": (lambda: eng.sub(a, b), ma - m2, []),
+        "negate": (lambda: eng.negate(a), -ma, []),
+        "mult_scalar": (lambda: eng.mult(a, 0.5), ma * 0.5, []),
+        "mult_int_scalar": (lambda: eng.mult(a, 3), ma * 3, []),
+        "mc_mult": (lambda: eng.mult(m2, a), ma * m2, transforms(eng)),
+        "add_scalar": (lambda: eng.add(a, 0.5), ma + 0.5, []),
+        "cm_add": (lambda: eng.add(a, m2), ma + m2, []),
+        "rotate_single": (lambda: eng.rotate_single(a, rotk),
+                          np.roll(ma, 1), switch),
+        "conjugate": (lambda: eng.conjugate(a, conjk), np.conj(ma), switch),
+    }
+    outs, errs, launched = {}, {}, {}
+    for name, (fn, want, own) in ops.items():
+        reset_counters()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        path = counters()
+        check_launches(f"{label} {name}", path, own, rows)
+        launched[name] = {k: v for k, v in path.items() if v}
+        errs[name] = abs(eng.absmax_error(eng.decrode(outs[name], sk), want))
+    print(f"{label} operations at level {a.level}: rotation and conjugation "
+          f"keys {t_keys:.2f} s; |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; launches {launched}")
+    for k, e in errs.items():
+        if not e < 1e-4:
+            raise AssertionError(f"{label} {k} error {e} >= 1e-4")
+    if timed:
+        for name in ("rotate_single", "conjugate", "add", "mult_scalar",
+                     "mc_mult"):
+            time_and_profile(label, name, ops[name][0], brief=True)
+    stacked = nbytes(eng._ksk_stacked(rotk))
+    print(f"{label} operations: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({held / 1e9:.2f} "
+          f"GB held before the phase); one rotation key {nbytes(rotk) / 1e9:.3f} "
+          f"GB, its switch stack {stacked / 1e9:.3f} GB")
+    return dict(a=a, rotk=rotk, conjk=conjk, outs=outs)
+
+
+def rotate_check(eng, label, ref, rows):
+    """rotate_single on another route of the same domain (the unsplit
+    butterfly switch, the Montgomery-form key) of ops_phase's operand and
+    key, with the counters zeroed just before: exactly the route's switch
+    kernels, and ops_phase's words."""
+    import torch
+
+    reset_counters()
+    out = eng.rotate_single(ref["a"], ref["rotk"])
+    torch.cuda.synchronize()
+    path = counters()
+    check_launches(f"{label} rotate_single", path, switch_kernels(eng), rows)
+    same = all(torch.equal(x, y) for x, y in
+               zip(out.data, ref["outs"]["rotate_single"].data))
+    print(f"{label} rotate_single: launches "
+          f"{ {k: v for k, v in path.items() if v} }, "
+          f"{'equal to' if same else 'DIFFERS from'} the other route's words")
+    if not same:
+        raise AssertionError(f"{label}: rotate_single differs across routes")
+
+
+def galois_phase(eng, label, run, rows):
+    """The Galois key and the statistics at silver, with the counters
+    zeroed just before: create_galois_key, rotate_galois by 3 and by
+    num_slots - 1, sum, mean, cov, var, pow(5) and sqrt(e=0.3, alpha=0.2)
+    on fresh real ciphertexts; decoded error < 1e-3 (sqrt < 0.05, as
+    tests/test_engine_math.py), the engine's domain's transforms and
+    switch kernels launched and no other. Times sum; prints the key's
+    bytes, its switch stacks' and the phase's peak device memory."""
+    import numpy as np
+    import torch
+
+    sk, pk, evk = run["keys"]
+    n = eng.num_slots
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t = time.perf_counter()
+    gk = eng.create_galois_key(sk)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 1)
+    x, y = rng.uniform(-1, 1, n), rng.uniform(-1, 1, n)
+    z = rng.uniform(0.35, 0.95, n)
+    cx, cy, cz = (eng.encorypt(v, pk) for v in (x, y, z))
+    ct1, m1 = run["cts"][0], messages(eng)[0]
+    cases = {
+        "rotate_galois 3": (lambda: eng.rotate_galois(ct1, gk, 3),
+                            np.roll(m1, 3), 1e-3),
+        f"rotate_galois {n - 1}": (lambda: eng.rotate_galois(ct1, gk, n - 1),
+                                   np.roll(m1, n - 1), 1e-3),
+        "sum": (lambda: eng.sum(cx, gk), np.full(n, x.sum()), 1e-3),
+        "mean": (lambda: eng.mean(cx, gk), np.full(n, x.mean()), 1e-3),
+        "cov": (lambda: eng.cov(cx, cy, evk, gk),
+                (x - x.mean()) * (y - y.mean()) / (n - 1), 1e-3),
+        "var": (lambda: eng.var(cx, evk, gk),
+                np.full(n, ((x - x.mean()) ** 2).mean()), 1e-3),
+        "pow 5": (lambda: eng.pow(cx, 5, evk), x ** 5, 1e-3),
+        "sqrt": (lambda: eng.sqrt(cz, evk, e=0.3, alpha=0.2), np.sqrt(z),
+                 0.05),
+    }
+    outs = {k: fn() for k, (fn, _, _) in cases.items()}
+    torch.cuda.synchronize()
+    path = counters()
+    errs = {k: abs(eng.absmax_error(
+        eng.decrode(outs[k], sk, is_real=not k.startswith("rotate")), want))
+        for k, (_, want, _) in cases.items()}
+    print(f"{label} Galois phase: {len(gk.data)} rotation keys "
+          f"{t_keys:.2f} s; |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; launches {path}")
+    for k, (_, _, tol) in cases.items():
+        if not errs[k] < tol:
+            raise AssertionError(f"{label} {k} error {errs[k]} >= {tol}")
+    check_launches(f"{label} Galois", path, own_kernels(eng), rows)
+    time_and_profile(label, "sum", cases["sum"][0], brief=True)
+    stacked = sum(nbytes(eng._ksk_stacked_cache[k]) for k in gk.data
+                  if k in eng._ksk_stacked_cache)
+    print(f"{label} Galois phase: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB held before the phase); the Galois key "
+          f"{nbytes(gk) / 1e9:.3f} GB, its switch stacks "
+          f"{stacked / 1e9:.3f} GB")
+    for k in gk.data:
+        eng._ksk_stacked_cache.pop(k, None)
+
+
+def small_ops(e, sk, pk, evk, ct):
+    """Every operation of the slice at logN 8 on the path's keys and
+    ciphertext: {name: the words of its result}."""
+    import numpy as np
+
+    from liberate_tpu_torch.ntt import ops
+
+    n = e.num_slots
+    m = np.arange(n)[::-1] / n
+    x = 0.35 + 0.6 * np.arange(n) / n
+    rotk = e.create_rotation_key(sk, 1)
+    conjk = e.create_conjugation_key(sk)
+    gk = e.create_galois_key(sk)
+    ksk = e.create_key_switching_key(sk, e.create_secret_key())
+    ct2, cx = e.encorypt(m, pk), e.encorypt(x, pk)
+    pack = e.pack(0, -1)
+    ct_ntt = ct._replace(data=tuple(ops.enter_ntt(d, pack) for d in ct.data),
+                         ntt_state=True, montgomery_state=True)
+    ctt = e.mult(ct, ct2, evk, relin=False)
+    outs = {
+        "rotation key": rotk, "conjugation key": conjk, "Galois key": gk,
+        "add": e.add(ct, ct2), "sub": e.sub(ct, ct2), "negate": e.negate(ct),
+        "add triplets": e.add(ctt, ctt), "mult float": e.mult(ct, 0.5),
+        "mult int": e.mult(ct, 3), "mult message": e.mult(m, ct),
+        "add float": e.add(ct, 0.5), "add message": e.add(ct, m),
+        "sub message": e.sub(m, ct), "sub from float": e.sub(0.5, ct),
+        "switch_key of an NTT-state ciphertext": e.switch_key(ct_ntt, ksk),
+        "rotate_single": e.rotate_single(ct, rotk),
+        "conjugate": e.conjugate(ct, conjk),
+        "rotate_galois": e.rotate_galois(ct, gk, 3), "sum": e.sum(ct, gk),
+        "mean": e.mean(ct, gk), "cov": e.cov(ct, ct2, evk, gk),
+        "var": e.var(ct, evk, gk), "pow": e.pow(ct, 5, evk),
+        "sqrt": e.sqrt(cx, evk, e=0.3, alpha=0.2),
+    }
+    return {k: [t.to("cpu") for t in tensors(v)] for k, v in outs.items()}
+
+
+def ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch):
+    """The kernel shapes and modes the operations beside the multiply add
+    at the preset, against their twins: the rotation key's transforms of
+    the level-0 secret key (B=1 over the ordinary channels; the inverse
+    without the Montgomery exit or the reduce, the forward without the
+    entry) and mc_mult's B=1 transforms at level 1 (the forward with the
+    entry, the inverse with the exit and the reduce), in both domains."""
+    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
+
+    N, logN = eng.ctx.N, eng.ctx.logN
+    p0, p1 = eng.pack(0, -1), eng.pack(1, -1)
+    C0, C1 = p0.q.shape[0], p1.q.shape[0]
+    x0 = random_words(p0.q, (1, C0, N), gen, lazy=True)
+    x1 = random_words(p1.q, (1, C1, N), gen, lazy=True)
+    key = "rotation key"
+    for name, label, x, plan, kw in (
+            ("ntt_inv", f"B=1 C={C0} no exit, no reduce ({key})", x0,
+             p0.plan, {}),
+            ("ntt_fwd", f"B=1 C={C0} no enter ({key})", x0, p0.plan, {}),
+            ("ntt_fwd", f"B=1 C={C1} enter (mc_mult)", x1, p1.plan,
+             dict(pre_enter=True)),
+            ("ntt_inv", f"B=1 C={C1} exit+reduce (mc_mult)", x1, p1.plan,
+             dict(post_exit=True, post_reduce=True))):
+        fwd = name == "ntt_fwd"
+        fn = cuda_ntt.ntt_fwd if fwd else cuda_ntt.ntt_inv
+        twin = cuda_ntt.ntt_fwd_plain if fwd else cuda_ntt.ntt_inv_plain
+        check_case(name, f"{preset} {label}",
+                   lambda fn=fn, x=x, plan=plan, kw=kw: fn(x, plan, **kw),
+                   lambda twin=twin, x=x, plan=plan, kw=kw: twin(x, plan,
+                                                                 **kw),
+                   transform_bound(x, logN, int(not fwd
+                                                or "pre_enter" in kw)),
+                   rows, "liberate_tpu_torch/csrc/ntt.cu",
+                   f"liberate_tpu/ntt/pallas_ntt.py:{534 if fwd else 577}",
+                   yardsticks=(scratch, x))
+    m0, m1 = eng_mxu.pack(0, -1), eng_mxu.pack(1, -1)
+    S, R = m0.mxu[0].plan.S, m0.mxu[0].plan.R
+    y0 = random_words(m0.q, (1, C0, N), gen, lazy=True)
+    y1 = random_words(m1.q, (1, C1, N), gen, lazy=True)
+    for name, label, y, groups, kw in (
+            ("mxu_ntt_inv", f"B=1 C={C0} no exit, no reduce ({key})", y0,
+             m0.mxu, dict(inverse=True)),
+            ("mxu_ntt_fwd", f"B=1 C={C0} no enter ({key})", y0, m0.mxu, {}),
+            ("mxu_ntt_fwd", f"B=1 C={C1} enter (mc_mult)", y1, m1.mxu,
+             dict(enter=True)),
+            ("mxu_ntt_inv", f"B=1 C={C1} exitx+reduce (mc_mult)", y1,
+             m1.mxu, dict(inverse=True, exitx=True, post_reduce=True))):
+        check_case(name, f"{preset} {label}, {len(groups)} groups",
+                   lambda y=y, g=groups, kw=kw: cuda_mxu.dispatch(y, g,
+                                                                  **kw),
+                   lambda y=y, g=groups, kw=kw: cuda_mxu.dispatch(
+                       y, g, plain=True, **kw),
+                   bound(*mxu_ntt_work(groups, 1, S, R)), rows,
+                   "liberate_tpu_torch/csrc/mxu_ntt.cu",
+                   "liberate_tpu/ntt/mxu_pallas.py:"
+                   f"{163 if 'inverse' in kw else 143}")
 
 
 def switch_core_path(eng, evk, gen, label, rows):
@@ -1121,8 +1448,15 @@ def preset_phase(preset, dev, gen, rows, scratch):
           f"{time.perf_counter() - t:.2f} s")
     kernel_phase(preset, eng, eng_mxu, gen, rows, False, scratch)
     if preset == "platinum":
-        split_phase(eng_mxu, gen)
+        # By now this process has traced some 150 profiler windows, and the
+        # profiler drops whole windows here (about half the platinum calls,
+        # in one run all of them); a fresh process kept every one.
+        torch.cuda.empty_cache()
+        sys.stdout.flush()
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--split-only", preset], check=True, timeout=900)
     split = drive_path(eng, f"{preset} butterfly", rows)
+    ops_phase(eng, f"{preset} butterfly", split, rows)
     del eng
     if params["logN"] <= FUSED_SWITCH_MAX_LOGN:
         eng_unsplit = liberate_tpu_torch.CkksEngine(
@@ -1133,7 +1467,8 @@ def preset_phase(preset, dev, gen, rows, scratch):
                              split)
         del eng_unsplit
     del split
-    drive_path(eng_mxu, f"{preset} MXU", rows)
+    ops_phase(eng_mxu, f"{preset} MXU", drive_path(eng_mxu, f"{preset} MXU",
+                                                   rows), rows)
     del eng_mxu
     if preset == "platinum":
         torch.cuda.empty_cache()
@@ -1151,6 +1486,10 @@ def main():
     ap.add_argument("--compile-yardstick", action="store_true",
                     help="time torch.compile of the ksk_mulacc twin as its "
                          "library_ms")
+    ap.add_argument("--split-only", metavar="PRESET",
+                    help="only split the preset's tensor-core switch and "
+                         "transform by launch (the script runs the "
+                         "platinum split so, in a process of its own)")
     opts = ap.parse_args()
     if opts.compile_yardstick:
         # torch.compile compiles in this process instead of a pool of
@@ -1173,6 +1512,14 @@ def main():
     from liberate_tpu_torch import _build
     from liberate_tpu_torch.fhe.context.ckks_context import CkksContext
     from liberate_tpu_torch.ntt import mxu_ntt
+
+    if opts.split_only:
+        eng_mxu = liberate_tpu_torch.CkksEngine(
+            **liberate_tpu_torch.params[opts.split_only], seed=SEED,
+            use_mxu_ntt=True)
+        split_phase(eng_mxu, torch.Generator(device="cuda:0").manual_seed(
+            SEED))
+        return 0
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1255,6 +1602,7 @@ def main():
         engines[preset] = (eng, eng_mxu)
         kernel_phase(preset, eng, eng_mxu, gen, rows,
                      opts.compile_yardstick and preset == "silver", scratch)
+        ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch)
         if preset == "gold":
             split_phase(eng_mxu, gen)
             int8_yardstick(eng_mxu, gen)
@@ -1267,7 +1615,7 @@ def main():
             ("MXU", dict(use_mxu_ntt=True)),
             ("MXU Montgomery-key", dict(use_mxu_ntt=True,
                                         use_shoup_ksk=False))):
-        outs = []
+        outs, new_ops = [], []
         for device in ("cuda:0", "cpu"):
             e = liberate_tpu_torch.CkksEngine(device=device, **kw, **SMALL)
             sk = e.create_secret_key()
@@ -1283,21 +1631,35 @@ def main():
             if not err < 1e-5:
                 raise AssertionError(f"logN 8 {domain} on {device}: mult "
                                      f"error {err}")
+            new_ops.append(small_ops(e, sk, pk, evk, ct))
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
             raise AssertionError(f"logN 8 {domain}: the card's keys or "
                                  f"ciphertexts differ from the CPU twins'")
         print(f"logN 8 {domain} path: card and CPU twins give identical "
               f"keys, ciphertexts and mult output")
+        card, cpu = new_ops
+        differ = [k for k in card if len(card[k]) != len(cpu[k]) or not all(
+            torch.equal(a, b) for a, b in zip(card[k], cpu[k]))]
+        if differ:
+            raise AssertionError(f"logN 8 {domain}: the card's words differ "
+                                 f"from the CPU twins' in {differ}")
+        print(f"logN 8 {domain} path: card and CPU twins give identical "
+              f"words for {len(card)} operations ({', '.join(card)})")
 
     # -- 6. the paths through the public API -------------------------------------
     eng, eng_mxu = engines["silver"]
     split = drive_path(eng, "silver butterfly", rows)
-    drive_path(eng_mxu, "silver MXU", rows)
+    split_ops = ops_phase(eng, "silver butterfly", split, rows, timed=True)
+    galois_phase(eng, "silver butterfly", split, rows)
+    mxu = drive_path(eng_mxu, "silver MXU", rows)
+    mxu_ops = ops_phase(eng_mxu, "silver MXU", mxu, rows, timed=True)
+    galois_phase(eng_mxu, "silver MXU", mxu, rows)
     eng_mont = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED, use_mxu_ntt=True,
         use_shoup_ksk=False)
     evk_mont = drive_path(eng_mont, "silver MXU Montgomery-key",
                           rows)["keys"][2]
+    rotate_check(eng_mont, "silver MXU Montgomery-key", mxu_ops, rows)
     switch_core_path(eng_mont, evk_mont, gen, "silver MXU switch core", rows)
     eng_unsplit = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED,
@@ -1305,16 +1667,18 @@ def main():
     unsplit = drive_path(eng_unsplit, "silver butterfly unsplit", rows,
                          per_mult=UNSPLIT_PER_MULT)
     unsplit_equals_split("silver butterfly unsplit", eng_unsplit, split)
+    rotate_check(eng_unsplit, "silver butterfly unsplit", split_ops, rows)
     host_gap("silver butterfly mult, split and unsplit engines",
              [("split", eng, split), ("unsplit", eng_unsplit, unsplit)])
     standalone_switch_path(eng_unsplit, unsplit["keys"],
                            "silver standalone switch", rows)
     del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, split, unsplit
+    del split_ops, mxu, mxu_ops
     del engines["silver"]
     eng, eng_mxu = engines.pop("gold")
-    drive_path(eng, "gold butterfly", rows)
-    drive_path(eng_mxu, "gold MXU", rows)
-    del eng, eng_mxu
+    for e, label in ((eng, "gold butterfly"), (eng_mxu, "gold MXU")):
+        ops_phase(e, label, drive_path(e, label, rows), rows, timed=True)
+    del eng, eng_mxu, e
     torch.cuda.empty_cache()
 
     # -- 7. bronze and platinum: start, kernels, paths ---------------------------

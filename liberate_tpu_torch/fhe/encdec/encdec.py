@@ -30,6 +30,13 @@ def canon_permutation(N, k=1):
     return p * np.arange(M) % M
 
 
+def canon_permutation_n(N, k=1):
+    """mu_p over n in [0, N) (the ciphertext-side rotations)."""
+    M = 2 * N
+    p = int(2 * k + 1)
+    return p * np.arange(N) % M
+
+
 def fold_permutation(p):
     """Fold the FFT at Nyquist: keep odd entries, map (x-1)/2."""
     return (p[1::2] - 1) // 2
@@ -146,3 +153,38 @@ def decode(poly, scale=2 ** 40, correction=1.0, norm="forward",
     out = np.zeros_like(mm)
     out[post_perm] = mm
     return out
+
+
+# ---------------------------------------------------------------------------
+# Ciphertext-side rotation/conjugation permutations as gather tables
+# (reference: encdec.py:171-197).
+# ---------------------------------------------------------------------------
+
+_rot_cache = {}
+
+
+def _signed_perm_data(N, leap):
+    """For mu_p with p = 2*leap+1: (gather_idx, neg_mask) such that
+    out[j] = (-1)^neg_mask[j] * x[gather_idx[j]]."""
+    key = (N, leap)
+    if key in _rot_cache:
+        return _rot_cache[key]
+    perm = canon_permutation_n(N, leap)
+    folded = perm % N           # destination index of source i
+    sign_neg = (perm // N) % 2  # 1 if the sign flips
+    gather = inverse_permutation(folded)
+    neg_mask = sign_neg[gather].astype(bool)
+    _rot_cache[key] = (gather.astype(np.int32), neg_mask)
+    return _rot_cache[key]
+
+
+def rotate_perm_data(N, delta):
+    """Gather/sign tables for rotating slots by ``delta``."""
+    shift = delta % N
+    leap = (pow(3, shift, 2 * N) - 1) // 2 % (2 * N)
+    return _signed_perm_data(N, leap)
+
+
+def conjugate_perm_data(N):
+    """Gather/sign tables for slot conjugation (mu_{-1}: leap = N-1)."""
+    return _signed_perm_data(N, N - 1)

@@ -1,5 +1,7 @@
 """The CKKS engine on PyTorch: keys, encryption, the ct x ct multiply and
-its key switch (relinearize, square, switch_key).
+its key switch (relinearize, square, switch_key), additions, scalar and
+plaintext operations, rotations, conjugation and the statistics built on
+them.
 
 A polynomial is one int64 tensor [C, N] of 62-bit words on the engine's
 device. Level/layout convention: the global prime order is
@@ -195,6 +197,71 @@ def _relin_post(d0, d1, s0, s1, pack):
     return ops.reduce_2q(d0 + s0, pack), ops.reduce_2q(d1 + s1, pack)
 
 
+def _add_core(a, b, pack):
+    """(a + b) mod q in [0, q), part by part (a ciphertext's two parts or a
+    triplet's three)."""
+    return tuple(ops.reduce_2q(ops.mont_add(x, y, pack), pack)
+                 for x, y in zip(a, b))
+
+
+def _sub_core(a, b, pack):
+    return tuple(ops.reduce_2q(ops.mont_sub(x, y, pack), pack)
+                 for x, y in zip(a, b))
+
+
+def _neg_core(d, pack):
+    return ops.reduce_2q(ops.neg(ops.reduce_2q(d, pack), pack), pack)
+
+
+def _scalar_mult_core(d, mont, pack, drop=0):
+    """Multiply d [..., C, N] by the per-channel Montgomery-form scalar
+    mont [C], after dropping its first ``drop`` channels (level_up)."""
+    d = ops.fit_channels(d[..., drop:, :], pack.q.shape[0])
+    return ops.reduce_2q(ops.mont_enter_scalar(d, mont, pack), pack)
+
+
+def _add_dc_core(d, vals, pack):
+    """Add the per-channel constants vals [C] to the DC coefficient."""
+    d = d.clone()
+    d[:, 0] += vals
+    return ops.reduce_2q(d, pack)
+
+
+def _mc_mult_core(pt, d0, d1, pack):
+    """(pt*d0, pt*d1) of a signed plaintext pt [1, N]: three B=1
+    enter+transforms, two Montgomery products, two inverse transforms with
+    the exit and the reduce."""
+    pt_t = ops.enter_ntt(ops.tile_unsigned(pt, pack), pack)
+    x0 = ops.enter_ntt(d0, pack)
+    x1 = ops.enter_ntt(d1, pack)
+    n0 = ops.intt_exit_reduce(ops.mont_mult(pt_t, x0, pack), pack)
+    n1 = ops.intt_exit_reduce(ops.mont_mult(pt_t, x1, pack), pack)
+    return n0, n1
+
+
+def _mc_add_core(pt, d0, pack):
+    """d0 + pt * scale in [0, q), in the plain domain."""
+    pt_t = ops.mont_enter_scale(ops.tile_unsigned(pt, pack), pack)
+    x0 = ops.mont_enter(d0, pack)
+    n0 = ops.mont_redc(ops.mont_add(pt_t, x0, pack), pack)
+    return ops.reduce_2q(n0, pack)
+
+
+def _rotate_sk_core(sk, gather, neg, pack):
+    """The coefficient-domain signed permutation of the secret key (the
+    Montgomery form commutes with it): the domain's inverse transform, the
+    permutation, negatives repaired to [0, 2q), the forward transform."""
+    c = ops.intt(ops.fit_channels(sk, pack.q.shape[0]), pack)
+    r = ops.canon_2q(ops.apply_signed_perm(c, gather, neg), pack)
+    return ops.ntt(r, pack)
+
+
+def _rotate_ct_core(d, gather, neg, pack):
+    """The signed permutation of plain [0, q) words, back to [0, q)."""
+    r = ops.make_unsigned(ops.apply_signed_perm(d, gather, neg), pack)
+    return ops.reduce_2q(r, pack)
+
+
 def _pre_extend(a, start, alpha, part):
     """Divided-difference state of one gadget part: a list of alpha
     [1, N] rows (signed int64; Montgomery multiplies mirror the CUDA int64
@@ -285,9 +352,13 @@ def _ksk_shoup(k, pack):
 
 @errors.log_error
 class CkksEngine:
-    """The user-facing CKKS engine (this slice: keys, encode/encrypt,
-    ct x ct multiply and square with or without relinearisation,
-    relinearize, switch_key, decrypt/decode of ciphertexts and triplets).
+    """The user-facing CKKS engine, single party: keys (secret, public,
+    evaluation, key-switching, rotation, conjugation and Galois),
+    encode/encrypt, decrypt/decode of ciphertexts and triplets, ct x ct
+    multiply and square with or without relinearisation, relinearize,
+    switch_key, add/sub/negate, scalar and plaintext operations
+    (``mult``, ``add`` and ``sub`` dispatch on the operands' types),
+    rotations, conjugation, and sum, mean, cov, pow, sqrt, var and std.
 
     ``device``: where every tensor lives; ``None`` means ``cuda:0`` and
     raises when no CUDA device is present. ``device="cpu"`` runs the
@@ -341,14 +412,48 @@ class CkksEngine:
         self._make_mont_PR()
         self._create_ksk_rescales()
         self._create_rescale_scales()
+        self.galois_deltas = [2 ** i for i in range(self.ctx.logN - 1)]
         self._ksk_stacked_cache = OrderedDict()
         self._mxu_switch_cache = {}
+        self._perm_device_cache = {}
 
         # (type, type) -> the name of the method: bound methods here would
         # tie the engine to itself in a reference cycle, and ``del engine``
         # would leave its tables and keys (over 10 GB at platinum) to the
         # cyclic collector.
-        self.mult_dispatch = {(DataStruct, DataStruct): "auto_cc_mult"}
+        self.mult_dispatch = {
+            (DataStruct, DataStruct): "auto_cc_mult",
+            (list, DataStruct): "mc_mult",
+            (np.ndarray, DataStruct): "mc_mult",
+            (DataStruct, np.ndarray): "cm_mult",
+            (DataStruct, list): "cm_mult",
+            (float, DataStruct): "scalar_mult",
+            (DataStruct, float): "mult_scalar",
+            (int, DataStruct): "int_scalar_mult",
+            (DataStruct, int): "mult_int_scalar",
+        }
+        self.add_dispatch = {
+            (DataStruct, DataStruct): "auto_cc_add",
+            (list, DataStruct): "mc_add",
+            (np.ndarray, DataStruct): "mc_add",
+            (DataStruct, np.ndarray): "cm_add",
+            (DataStruct, list): "cm_add",
+            (float, DataStruct): "scalar_add",
+            (DataStruct, float): "add_scalar",
+            (int, DataStruct): "scalar_add",
+            (DataStruct, int): "add_scalar",
+        }
+        self.sub_dispatch = {
+            (DataStruct, DataStruct): "auto_cc_sub",
+            (list, DataStruct): "mc_sub",
+            (np.ndarray, DataStruct): "mc_sub",
+            (DataStruct, np.ndarray): "cm_sub",
+            (DataStruct, list): "cm_sub",
+            (float, DataStruct): "scalar_sub",
+            (DataStruct, float): "sub_scalar",
+            (int, DataStruct): "scalar_sub",
+            (DataStruct, int): "sub_scalar",
+        }
 
     def _tensor(self, vals):
         return u64.tensor(vals, self.device)
@@ -704,10 +809,14 @@ class CkksEngine:
 
     # -- key switching -----------------------------------------------------------
 
-    def _switch(self, a, ksk: DataStruct, level: int):
-        """Key-switch a [C_ord, N] (plain [0, q), coefficient domain):
-        returns (d0, d1) over the ordinary channels in [0, q). The
-        butterfly switch core takes ``butterfly_switch_route``."""
+    def _switch(self, a, ksk: DataStruct, level: int, exit_ntt=False):
+        """Key-switch a [C_ord, N] (plain [0, q), coefficient domain; with
+        ``exit_ntt`` NTT and Montgomery domain, brought back by the inverse
+        transform with the exit and the reduce): returns (d0, d1) over the
+        ordinary channels in [0, q). The butterfly switch core takes
+        ``butterfly_switch_route``."""
+        if exit_ntt:
+            a = ops.intt_exit_reduce(a, self.pack(level, -1))
         if self.use_mxu_ntt:
             return self._switch_mxu(a, ksk, level)
         parts = self.ntt.parts(level)
@@ -808,15 +917,15 @@ class CkksEngine:
                           types.origins["ct"], level + 1, self.hash)
 
     def switch_key(self, ct: DataStruct, ksk: DataStruct) -> DataStruct:
-        """Switch a plain-domain ciphertext to the key ``ksk`` carries it to
+        """Switch a ciphertext to the key ``ksk`` carries it to
         (``create_key_switching_key(sk_from, sk_to)``: ct under sk_from in,
-        under sk_to out)."""
+        under sk_to out). Of an NTT-state ciphertext, ct1 leaves the NTT
+        domain before the switch; ct0 and the flags are kept as they
+        are."""
         if ct.origin != types.origins["ct"]:
             raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
-        if ct.ntt_state or ct.montgomery_state:
-            raise errors.NotMatchDataStructState(origin=ct.origin)
         level = ct.level
-        d0, d1 = self._switch(ct.data[1], ksk, level)
+        d0, d1 = self._switch(ct.data[1], ksk, level, exit_ntt=ct.ntt_state)
         pack = self.pack(level, -1)
         ct0 = ops.reduce_2q(ops.mont_add(ct.data[0], d0, pack), pack)
         return DataStruct((ct0, d1), ct.include_special, ct.ntt_state,
@@ -883,12 +992,10 @@ class CkksEngine:
         diff_deviation = (self.deviations[dst_level]
                           / np.sqrt(self.deviations[src_level]))
         deviated_delta = round(self.scale * diff_deviation)
-        drop = dst_level - src_level
-        pack_dst = self.pack(dst_level, -1)
-        mult = self._tensor([(deviated_delta * self.ctx.R) % qi
-                             for qi in self.ntt.q_ints(dst_level, -1)])
-        d = torch.stack(new_ct.data)[:, drop:]
-        d = ops.reduce_2q(ops.mont_enter_scalar(d, mult, pack_dst), pack_dst)
+        d = _scalar_mult_core(torch.stack(new_ct.data),
+                              self._scalar_to_mont(deviated_delta, dst_level),
+                              self.pack(dst_level, -1),
+                              drop=dst_level - src_level)
         return DataStruct((d[0], d[1]), False, False, False,
                           types.origins["ct"], dst_level, self.hash)
 
@@ -903,12 +1010,339 @@ class CkksEngine:
         a, b = self.auto_level(ct0, ct1)
         return self.cc_mult(a, b, evk, relin=relin)
 
-    def mult(self, a, b, evk=None, relin=True):
-        name = self.mult_dispatch.get((type(a), type(b)))
+    def auto_cc_add(self, ct0, ct1):
+        a, b = self.auto_level(ct0, ct1)
+        return self.cc_add(a, b)
+
+    def auto_cc_sub(self, ct0, ct1):
+        a, b = self.auto_level(ct0, ct1)
+        return self.cc_sub(a, b)
+
+    # -- add / sub / negate -------------------------------------------------------
+
+    def _cc_double(self, a: DataStruct, b: DataStruct, core) -> DataStruct:
+        for ct in (a, b):
+            if ct.ntt_state or ct.montgomery_state:
+                raise errors.NotMatchDataStructState(origin=ct.origin)
+        if a.level != b.level:
+            raise errors.NotSameLevelError(a=a.level, b=b.level)
+        c = core(a.data[:2], b.data[:2], self.pack(a.level, -1))
+        return DataStruct(c, False, False, False, types.origins["ct"],
+                          a.level, self.hash)
+
+    def _cc_triplet(self, a: DataStruct, b: DataStruct, core) -> DataStruct:
+        if a.level != b.level:
+            raise errors.NotSameLevelError(a=a.level, b=b.level)
+        c = core(a.data, b.data, self.pack(a.level, -1))
+        return DataStruct(c, False, True, True, types.origins["ctt"],
+                          a.level, self.hash)
+
+    def cc_add_double(self, a: DataStruct, b: DataStruct) -> DataStruct:
+        return self._cc_double(a, b, _add_core)
+
+    def cc_add_triplet(self, a: DataStruct, b: DataStruct) -> DataStruct:
+        return self._cc_triplet(a, b, _add_core)
+
+    def cc_add(self, a: DataStruct, b: DataStruct) -> DataStruct:
+        if a.origin == types.origins["ct"] and b.origin == types.origins["ct"]:
+            return self.cc_add_double(a, b)
+        if (a.origin == types.origins["ctt"]
+                and b.origin == types.origins["ctt"]):
+            return self.cc_add_triplet(a, b)
+        raise errors.DifferentTypeError(a=a.origin, b=b.origin)
+
+    def cc_sub_double(self, a: DataStruct, b: DataStruct) -> DataStruct:
+        return self._cc_double(a, b, _sub_core)
+
+    def cc_sub_triplet(self, a: DataStruct, b: DataStruct) -> DataStruct:
+        return self._cc_triplet(a, b, _sub_core)
+
+    def cc_sub(self, a: DataStruct, b: DataStruct) -> DataStruct:
+        if a.origin != b.origin:
+            raise errors.DifferentTypeError(a=a.origin, b=b.origin)
+        if a.origin == types.origins["ct"]:
+            return self.cc_sub_double(a, b)
+        if a.origin == types.origins["ctt"]:
+            return self.cc_sub_triplet(a, b)
+        raise errors.NotMatchType(origin=a.origin, to="ct or ctt")
+
+    cc_subtract = cc_sub
+
+    def negate(self, ct: DataStruct) -> DataStruct:
+        pack = self.pack(ct.level, -1)
+        return ct._replace(data=tuple(_neg_core(d, pack) for d in ct.data))
+
+    # -- scalar ops --------------------------------------------------------------
+
+    def _scalar_to_mont(self, value: int, level: int):
+        """value * R mod q_i over the level's ordinary channels."""
+        return self._tensor([(value * self.ctx.R) % qi
+                             for qi in self.ntt.q_ints(level, -1)])
+
+    def _scalar_mult(self, ct: DataStruct, value: int) -> DataStruct:
+        mont = self._scalar_to_mont(value, ct.level)
+        pack = self.pack(ct.level, -1)
+        return ct._replace(data=tuple(_scalar_mult_core(d, mont, pack)
+                                      for d in ct.data))
+
+    def mult_int_scalar(self, ct: DataStruct, scalar, evk=None, relin=True):
+        if ct.origin != types.origins["ct"]:
+            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
+        return self._scalar_mult(ct, int(scalar))
+
+    def mult_scalar(self, ct: DataStruct, scalar, evk=None, relin=True):
+        """ct * scalar: the scalar at the scale of the next level, then the
+        rescale."""
+        scaled = int(scalar * self.scale
+                     * np.sqrt(self.deviations[ct.level + 1]) + 0.5)
+        return self.rescale(self._scalar_mult(ct, scaled))
+
+    def add_scalar(self, ct: DataStruct, scalar):
+        scaled = int(scalar * self.scale * self.deviations[ct.level] + 0.5)
+        if self.norm == "backward":
+            scaled *= self.ctx.N
+        scaled *= self.int_scale
+        vals = self._tensor([scaled % qi
+                             for qi in self.ntt.q_ints(ct.level, -1)])
+        d0 = _add_dc_core(ct.data[0], vals, self.pack(ct.level, -1))
+        return ct._replace(data=(d0,) + tuple(ct.data[1:]))
+
+    def sub_scalar(self, ct: DataStruct, scalar):
+        return self.add_scalar(ct, -scalar)
+
+    def int_scalar_mult(self, scalar, ct, evk=None, relin=True):
+        return self.mult_int_scalar(ct, scalar)
+
+    def scalar_mult(self, scalar, ct, evk=None, relin=True):
+        return self.mult_scalar(ct, scalar)
+
+    def scalar_add(self, scalar, ct):
+        return self.add_scalar(ct, scalar)
+
+    def scalar_sub(self, scalar, ct):
+        return self.add_scalar(self.negate(ct), scalar)
+
+    # -- message ops -------------------------------------------------------------
+
+    def mc_mult(self, m, ct: DataStruct, evk=None, relin=True):
+        """ct * m: m encoded at the scale of the next level, the negacyclic
+        product, then the rescale."""
+        m = np.array(m) * np.sqrt(self.deviations[ct.level + 1])
+        pt = self.encode(m, 0)
+        d0, d1 = _mc_mult_core(pt, ct.data[0], ct.data[1],
+                               self.pack(ct.level, -1))
+        return self.rescale(ct._replace(data=(d0, d1)))
+
+    def mc_add(self, m, ct: DataStruct):
+        pt = self.encode(m, ct.level)
+        d0 = _mc_add_core(pt, ct.data[0], self.pack(ct.level, -1))
+        return ct._replace(data=(d0,) + tuple(ct.data[1:]))
+
+    def mc_sub(self, m, ct: DataStruct):
+        return self.mc_add(m, self.negate(ct))
+
+    def cm_mult(self, ct, m, evk=None, relin=True):
+        return self.mc_mult(m, ct)
+
+    def cm_add(self, ct, m):
+        return self.mc_add(m, ct)
+
+    def cm_sub(self, ct, m):
+        return self.mc_add(-np.array(m), ct)
+
+    # -- rotations and conjugation ---------------------------------------------------
+
+    def _perm_on_device(self, key, perm_data):
+        """A permutation's gather index (int64) and sign mask on the
+        engine's device, kept for the engine's life."""
+        if key not in self._perm_device_cache:
+            gather, neg = perm_data
+            self._perm_device_cache[key] = (
+                torch.from_numpy(gather.astype(np.int64)).to(self.device),
+                torch.from_numpy(neg).to(self.device))
+        return self._perm_device_cache[key]
+
+    def _rotated_sk(self, sk: DataStruct, perm_key, perm_data) -> DataStruct:
+        gather, neg = self._perm_on_device(perm_key, perm_data)
+        rotated = _rotate_sk_core(sk.data, gather, neg, self.pack(0, -1))
+        return DataStruct(rotated, False, True, True, types.origins["sk"], 0,
+                          self.hash)
+
+    def create_rotation_key(self, sk: DataStruct, delta: int,
+                            a=None) -> DataStruct:
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        perm = encdec.rotate_perm_data(self.ctx.N, delta)
+        sk_rotated = self._rotated_sk(sk, ("rot", delta), perm)
+        rotk = self.create_key_switching_key(sk_rotated, sk, a=a)
+        return rotk._replace(origin=types.origins["rotk"] + f"{delta}")
+
+    def create_conjugation_key(self, sk: DataStruct) -> DataStruct:
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        perm = encdec.conjugate_perm_data(self.ctx.N)
+        sk_conj = self._rotated_sk(sk, ("conj",), perm)
+        conjk = self.create_key_switching_key(sk_conj, sk)
+        return conjk._replace(origin=types.origins["conjk"])
+
+    def create_galois_key(self, sk: DataStruct) -> DataStruct:
+        """The rotation keys of every delta in ``galois_deltas`` (2^i)."""
+        parts = [self.create_rotation_key(sk, delta)
+                 for delta in self.galois_deltas]
+        return DataStruct(parts, True, True, True, types.origins["galk"], 0,
+                          self.hash)
+
+    def _permute_ct(self, ct: DataStruct, perm_key, perm_data) -> DataStruct:
+        gather, neg = self._perm_on_device(perm_key, perm_data)
+        pack = self.pack(ct.level, -1)
+        return ct._replace(data=tuple(_rotate_ct_core(d, gather, neg, pack)
+                                      for d in ct.data))
+
+    def _rotate_switch(self, ct: DataStruct, rotk: DataStruct, perm_key,
+                       perm_data) -> DataStruct:
+        """The rotation of a plain-domain ciphertext: the signed
+        permutation of both parts, the key switch of the second, the final
+        add."""
+        level = ct.level
+        pack = self.pack(level, -1)
+        gather, neg = self._perm_on_device(perm_key, perm_data)
+        r = _rotate_ct_core(torch.stack(ct.data[:2]), gather, neg, pack)
+        s0, s1 = self._switch(r[1], rotk, level)
+        c0 = ops.reduce_2q(ops.mont_add(r[0], s0, pack), pack)
+        return DataStruct((c0, s1), ct.include_special, ct.ntt_state,
+                          ct.montgomery_state, types.origins["ct"], level,
+                          self.hash)
+
+    def rotate_single(self, ct: DataStruct, rotk: DataStruct) -> DataStruct:
+        """Rotate the slots by the delta of ``rotk``'s origin (the part
+        after its last ':'): slot i moves to i + delta, as np.roll."""
+        if types.origins["rotk"] not in rotk.origin:
+            raise errors.NotMatchType(origin=rotk.origin,
+                                      to=types.origins["rotk"])
+        delta = int(rotk.origin.split(":")[-1])
+        perm = encdec.rotate_perm_data(self.ctx.N, delta)
+        if ct.ntt_state or ct.montgomery_state:
+            rotated = self._permute_ct(ct, ("rot", delta), perm)
+            return self.switch_key(rotated, rotk)
+        return self._rotate_switch(ct, rotk, ("rot", delta), perm)
+
+    def rotate_galois(self, ct: DataStruct, gk: DataStruct, delta: int,
+                      return_circuit=False):
+        """Rotate by any delta as a chain of the Galois key's power-of-two
+        rotations (the largest first)."""
+        if gk.origin != types.origins["galk"]:
+            raise errors.NotMatchType(origin=gk.origin,
+                                      to=types.origins["galk"])
+        current_delta = delta % self.num_slots
+        circuit = []
+        while current_delta:
+            ind = int(math.log2(current_delta))
+            circuit.append(ind)
+            current_delta -= self.galois_deltas[ind]
+        rotated = ct
+        for ind in circuit:
+            rotated = self.rotate_single(rotated, gk.data[ind])
+        return (rotated, circuit) if return_circuit else rotated
+
+    def conjugate(self, ct: DataStruct, conjk: DataStruct) -> DataStruct:
+        perm = encdec.conjugate_perm_data(self.ctx.N)
+        if ct.ntt_state or ct.montgomery_state:
+            conj = self._permute_ct(ct, ("conj",), perm)
+            return self.switch_key(conj, conjk)
+        return self._rotate_switch(ct, conjk, ("conj",), perm)
+
+    # -- statistics ------------------------------------------------------------------
+
+    def sum(self, ct: DataStruct, gk: DataStruct) -> DataStruct:
+        """Every slot holds the sum of all slots."""
+        new_ct = ct
+        for roti in range(self.ctx.logN - 1):
+            rot_ct = self.rotate_single(new_ct, gk.data[roti])
+            new_ct = self.add(rot_ct, new_ct)
+        return new_ct
+
+    def mean(self, ct: DataStruct, gk: DataStruct, alpha=1) -> DataStruct:
+        new_ct = self.mult(1 / self.num_slots / alpha, ct)
+        for roti in range(self.ctx.logN - 1):
+            rot_ct = self.rotate_single(new_ct, gk.data[roti])
+            new_ct = self.add(rot_ct, new_ct)
+        return new_ct
+
+    def cov(self, ct_a: DataStruct, ct_b: DataStruct,
+            evk: DataStruct, gk: DataStruct) -> DataStruct:
+        cta_dev = self.sub(ct_a, self.mean(ct_a, gk))
+        ctb_dev = self.sub(ct_b, self.mean(ct_b, gk))
+        return self.mult(self.mult(cta_dev, ctb_dev, evk),
+                         1 / (self.num_slots - 1))
+
+    def pow(self, ct: DataStruct, power: int, evk: DataStruct) -> DataStruct:
+        """ct^power by repeated squaring, then the products of the powers
+        of two that make up the rest."""
+        current_exponent = 2
+        pow_list = [ct]
+        while current_exponent <= power:
+            pow_list.append(self.cc_mult(pow_list[-1], pow_list[-1], evk))
+            current_exponent *= 2
+        remaining = power - current_exponent // 2
+        new_ct = pow_list[-1]
+        while remaining > 0:
+            ind = math.floor(math.log2(remaining))
+            new_ct = self.auto_cc_mult(new_ct, pow_list[ind], evk)
+            remaining -= 2 ** ind
+        return new_ct
+
+    def sqrt(self, ct: DataStruct, evk: DataStruct, e=0.0001,
+             alpha=0.0001) -> DataStruct:
+        """Wilkes' iteration for the square root of slots in (0, 1]: runs
+        while e <= 1 - alpha (the step's constants from np.roots)."""
+        a = ct
+        b = ct
+        while e <= 1 - alpha:
+            k = float(np.roots([1 - e ** 3, -6 + 6 * e ** 2, 9 - 9 * e])[1])
+            t = self.mult_scalar(a, k)
+            b0 = self.sub_scalar(t, 3)
+            b1 = self.mult_scalar(b, (k ** 0.5) / 2)
+            b = self.cc_mult(b0, b1, evk)
+
+            a0 = self.mult_scalar(a, (k ** 3) / 4)
+            t = self.sub_scalar(a, 3 / k)
+            a1 = self.square(t, evk)
+            a = self.cc_mult(a0, a1, evk)
+            e = k * (3 - k) ** 2 / 4
+        return b
+
+    def var(self, ct: DataStruct, evk: DataStruct, gk: DataStruct,
+            relin=False) -> DataStruct:
+        dev = self.sub(ct, self.mean(ct, gk))
+        dev = self.square(dev, evk, relin=relin)
+        if not relin:
+            dev = self.relinearize(dev, evk)
+        return self.mean(dev, gk)
+
+    def std(self, ct: DataStruct, evk: DataStruct, gk: DataStruct,
+            relin=False) -> DataStruct:
+        return self.sqrt(self.var(ct, evk, gk, relin=relin), evk)
+
+    def reduce_error(self, ct):
+        return self.mult_scalar(ct, 1.0)
+
+    # -- dispatchers -----------------------------------------------------------------
+
+    def _dispatch(self, table, a, b):
+        name = table.get((type(a), type(b)))
         if name is None:
             raise errors.DifferentTypeError(a=type(a).__name__,
                                             b=type(b).__name__)
-        return getattr(self, name)(a, b, evk, relin)
+        return getattr(self, name)
+
+    def mult(self, a, b, evk=None, relin=True):
+        return self._dispatch(self.mult_dispatch, a, b)(a, b, evk, relin)
+
+    def add(self, a, b):
+        return self._dispatch(self.add_dispatch, a, b)(a, b)
+
+    def sub(self, a, b):
+        return self._dispatch(self.sub_dispatch, a, b)(a, b)
 
 
 # Reference-compatible alias.

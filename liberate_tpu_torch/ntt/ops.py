@@ -17,9 +17,10 @@ import torch
 from . import cuda_mxu, cuda_ntt, u64
 
 __all__ = [
-    "mont_mult", "mont_enter", "mont_enter_scalar", "mont_redc", "mont_add",
-    "mont_sub", "reduce_2q", "canon_2q", "make_signed", "make_unsigned",
-    "tile_unsigned", "fit_channels", "ntt", "intt", "enter_ntt", "intt_exit",
+    "mont_mult", "mont_enter", "mont_enter_scale", "mont_enter_scalar",
+    "mont_redc", "mont_add", "mont_sub", "neg", "reduce_2q", "canon_2q",
+    "make_signed", "make_unsigned", "tile_unsigned", "apply_signed_perm",
+    "fit_channels", "ntt", "intt", "enter_ntt", "intt_exit",
     "intt_exit_reduce", "intt_reduce",
 ]
 
@@ -46,6 +47,12 @@ def mont_enter(a, pack):
     return mont_mult(a, _col(pack.Rs), pack)
 
 
+def mont_enter_scale(a, pack):
+    """Multiply by scale*R (the encode-side scaling, into Montgomery
+    form)."""
+    return mont_mult(a, _col(pack.Rs_scale), pack)
+
+
 def mont_enter_scalar(a, scalar, pack):
     """Multiply by a per-channel Montgomery-form scalar [C]."""
     return mont_mult(a, _col(scalar), pack)
@@ -62,6 +69,12 @@ def mont_add(a, b, pack):
 def mont_sub(a, b, pack):
     q2 = _col(pack.q2)
     return _cond_sub(a + q2 - b, q2)
+
+
+def neg(a, pack):
+    """-a mod q kept in [0, 2q): 2q - a, conditionally reduced."""
+    q2 = _col(pack.q2)
+    return _cond_sub(q2 - a, q2)
 
 
 def reduce_2q(a, pack):
@@ -87,6 +100,16 @@ def make_unsigned(a, pack):
 def tile_unsigned(a, pack):
     """Broadcast a signed [N] or [1, N] poly to [C, N]: a + q per channel."""
     return a.reshape(1, -1) + _col(pack.q)
+
+
+def apply_signed_perm(a, gather, neg_mask):
+    """Signed coefficient permutation out[..., j] = (-1)^neg_mask[j] *
+    a[..., gather[j]] (the Galois automorphism on negacyclic polynomials).
+    The negation is two's complement; the caller repairs the sign
+    (``make_unsigned`` or ``canon_2q``). gather: int64 [N] on a's
+    device."""
+    g = a.index_select(-1, gather)
+    return torch.where(neg_mask, -g, g)
 
 
 def fit_channels(d, W):

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-its engine runs on the CPU only when asked to."""
+its engine runs on the CPU only when asked to. A Galois key survives the
+trip through ``interop`` and back."""
 
 import pathlib
 import re
@@ -80,3 +81,104 @@ def test_other_entry_points_without_device_raise_when_no_cuda(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+def _galois_tree():
+    """The limb tree of a Galois key: a list of rotation keys, each a list
+    of key-switching parts, each a pair of polynomials."""
+    import numpy as np
+
+    def meta(origin):
+        return dict(include_special=True, ntt_state=True,
+                    montgomery_state=True, origin=origin, level=0, hash="",
+                    version="")
+
+    part = ((np.zeros((2, 3, 8), np.uint32),) * 2,
+            meta("key switch key part index 0"))
+    rotk = ([part, part], meta("rotation key:1"))
+    return [rotk, rotk], meta("galois key")
+
+
+def test_galois_key_from_reference_without_device_raises(monkeypatch):
+    from liberate_tpu_torch import interop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.from_reference(*_galois_tree())
+
+
+@pytest.fixture(scope="module")
+def cpu_engine():
+    import numpy as np
+
+    import liberate_tpu_torch
+
+    e = liberate_tpu_torch.CkksEngine(device="cpu", logN=8, scale_bits=30,
+                                      num_scales=3, num_special_primes=2,
+                                      is_secured=False, seed=1)
+    sk = e.create_secret_key()
+    ct = e.encorypt(np.linspace(-1, 1, e.num_slots),
+                    e.create_public_key(sk))
+    return e, sk, ct
+
+
+def _leaves(x):
+    from liberate_tpu_torch.fhe.data_struct import DataStruct
+
+    if isinstance(x, DataStruct):
+        return _leaves(x.data)
+    if isinstance(x, (tuple, list)):
+        return [t for d in x for t in _leaves(d)]
+    return [x]
+
+
+@pytest.mark.parametrize("entry", [
+    "create_rotation_key", "create_conjugation_key", "create_galois_key",
+    "rotate_single", "rotate_galois", "conjugate", "sum"])
+def test_key_and_rotation_entry_points_stay_on_the_cpu(cpu_engine, entry,
+                                                       monkeypatch):
+    """Without a card, an engine built with device="cpu" runs the key and
+    rotation entry points and leaves every tensor on the CPU (an engine
+    built without a device raises: above)."""
+    e, sk, ct = cpu_engine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry in ("create_rotation_key", "rotate_single"):
+        out = e.create_rotation_key(sk, 1)
+        if entry == "rotate_single":
+            out = e.rotate_single(ct, out)
+    elif entry in ("create_conjugation_key", "conjugate"):
+        out = e.create_conjugation_key(sk)
+        if entry == "conjugate":
+            out = e.conjugate(ct, out)
+    else:
+        out = e.create_galois_key(sk)
+        if entry == "rotate_galois":
+            out = e.rotate_galois(ct, out, 3)
+        elif entry == "sum":
+            out = e.sum(ct, out)
+    assert all(t.device.type == "cpu" for t in _leaves(out))
+
+
+def test_galois_key_interop_round_trip(cpu_engine):
+    """to_reference_arrays then from_reference gives back the Galois key:
+    its nesting, every DataStruct's metadata and every word."""
+    from liberate_tpu_torch import interop
+    from liberate_tpu_torch.fhe.data_struct import DataStruct
+
+    e, sk, _ = cpu_engine
+    gk = e.create_galois_key(sk)
+    back = interop.from_reference(*interop.to_reference_arrays(gk),
+                                  device="cpu")
+
+    def same(a, b):
+        if isinstance(a, DataStruct):
+            assert isinstance(b, DataStruct)
+            assert [getattr(a, k) for k in a.__slots__ if k != "data"] == \
+                [getattr(b, k) for k in b.__slots__ if k != "data"]
+            return same(a.data, b.data)
+        if isinstance(a, (tuple, list)):
+            assert type(a) is type(b) and len(a) == len(b)
+            return all(same(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    assert len(gk.data) == 7 and same(gk, back)
