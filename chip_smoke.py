@@ -41,15 +41,25 @@
    then ``ksk_mulacc``), its yardstick. At silver and gold also the B=1
    transforms the other operations add (``ops_kernel_phase``): the
    rotation key's inverse and forward of the level-0 secret key without
-   the Montgomery exit or entry, and ``mc_mult``'s at level 1, in both
-   domains.
+   the Montgomery exit or entry, ``mc_mult``'s at level 1 and the
+   threshold decryption's inverse with the exit and without the reduce, in
+   both domains. Then the switch kernels' ct-batched part segments
+   (``segment_phase``, ``SEGMENTS``): #11 at silver (B = 2, 4, 8), #9 at
+   silver (B = 4), #10 at gold (B = 2, 4), each held against its twin,
+   each segment against its single-ciphertext call, and timed beside B
+   single calls on the same words; and the batched mult's #5 (B = 4 Bct)
+   and #6 (B = 3 Bct) shapes at silver (Bct = 4, 8) and gold (Bct = 4).
 5. Runs the whole path at logN 8 on the card and on the CPU (twins) from
    one seed, in both NTT domains, with the Montgomery-form key and with the
    unsplit butterfly switch: the keys and ciphertexts must be identical
    words, and so must those of every other operation of the engine
    (``small_ops``: rotation, conjugation and Galois keys, add, sub,
    negate, the scalar and message operations, the switch of an NTT-state
-   ciphertext, the rotations, sum, mean, cov, var, pow, sqrt).
+   ciphertext, the rotations, sum, mean, cov, var, pow, sqrt,
+   ``mult_batched``, and two parties' collective public key, evk,
+   rotation and Galois keys, the threshold decryption's head and partial,
+   mult under the collective evk and rotate_galois under the collective
+   Galois key).
 6. Drives the paths through the public API, each with the launch counters
    zeroed just before: keygen -> 2 x encorypt -> mult -> decrode at silver
    in each domain, with the unsplit butterfly switch
@@ -77,7 +87,19 @@
    timed a line each; at silver ``galois_phase`` in both domains (the
    Galois key, rotate_galois, sum, mean, cov, var, pow, sqrt; decoded
    error < 1e-3, sqrt < 0.05) and ``rotate_check`` of the unsplit and
-   Montgomery-key routes against the others' words.
+   Montgomery-key routes against the others' words. Then
+   ``batched_phase``: ``mult_batched`` of Bct = 1, 2, 4, 8 pairs at silver
+   (butterfly, a loop; tensor-core; tensor-core with the Montgomery-form
+   key) and Bct = 1, 2, 4 at gold tensor-core, each with the counters
+   zeroed: the words of per-pair mult, error < 1e-4, in the tensor-core
+   domain one switch dispatch a batch; wall (median of 7) and busy per
+   batch and per mult (the butterfly loop at Bct = 1 and 8 only), peak
+   memory; ``multiparty_phase`` with three parties
+   at silver in both domains and at gold tensor-core (the collective
+   public key, evk and rotation key, mult and rotate_single under them,
+   the threshold decryption < 1e-4, each step timed once, the engine's
+   kernels and no other); ``data_phase`` on the card (save/load, clone,
+   move_to).
 7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
    six special primes), one preset after the other, each preset's
    engines freed before the next: the engines' start (the context cold
@@ -91,9 +113,11 @@
    paths butterfly, tensor-core and, at platinum, tensor-core with the
    Montgomery-form key, as in 6; at bronze also the unsplit butterfly path
    (``ntt_mulacc``), its mult held against the split one as in 6; after
-   the butterfly and tensor-core paths ``ops_phase`` untimed.
-8. Prints the script's time, the card line, the kernels' JSON line and,
-   last, the result line.
+   the butterfly and tensor-core paths ``ops_phase`` untimed; the segment
+   rows #11 at bronze (B = 4) and #10 at platinum (B = 2); the batched
+   mult untimed (bronze Bct = 4, platinum Bct = 2) with its peak memory.
+8. Prints the time of the phases this slice added and the script's time,
+   the card line, the kernels' JSON line and, last, the result line.
 
 ``--split-only PRESET`` runs only the split by launch at the preset; the
 script runs platinum's so, in a process of its own.
@@ -134,6 +158,13 @@ MONT_MULS = 4 + 3 + 4       # a*b (128 bit), m = lo*k, m*q (128 bit)
 SPIN_CYCLES = 2_000_000
 # The kernel launches of one mult of an unsplit butterfly engine.
 UNSPLIT_PER_MULT = dict(ntt_fwd=1, ntt_mulacc=1, ntt_inv=2, ksk_mulacc=0)
+# The switch kernels' ct-batched segment cases (kernel, B) at each preset.
+SEGMENTS = {
+    "silver": [("mxu_switch", 2), ("mxu_switch", 4), ("mxu_switch", 8),
+               ("mxu_switch_inv_mont", 4)],
+    "gold": [("mxu_switch_inv", 2), ("mxu_switch_inv", 4)],
+    "bronze": [("mxu_switch", 4)],
+    "platinum": [("mxu_switch_inv", 2)]}
 SMALL = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
              is_secured=False, seed=SEED)
 
@@ -222,7 +253,7 @@ def mxu_ntt_work(groups, B, S, R):
 
 
 def mxu_switch_work(groups, P, A, n_sp, S, R, mont=False, from_ext=False,
-                    inverse=True):
+                    inverse=True, B=1):
     """The same for the switch of one ciphertext: the state rows, the key
     of both halves for every part and channel (Shoup pairs, or ``mont``
     single Montgomery-form words), the forward and inverse tables and the
@@ -231,22 +262,24 @@ def mxu_switch_work(groups, P, A, n_sp, S, R, mont=False, from_ext=False,
     steps and exported rows as well (0: the switch without the fold).
     ``from_ext``: the input is the extension's words [P, C, N] (no
     extension); ``inverse=False``: no inverse transforms, the key sums are
-    the output."""
+    the output. ``B``: the switches of B ciphertexts (ct segments) under
+    one key, whose words and the tables are read once for all of them."""
     N = S * R
     key_words, key_muls = (2, MONT_MULS) if mont else (4, SHOUP_MULS)
-    by = (0 if from_ext else 8 * P * A * N) + 2 * 8 * 2 * n_sp * N
+    by = B * ((0 if from_ext else 8 * P * A * N) + 2 * 8 * 2 * n_sp * N)
     ext_muls = 0 if from_ext else BARRETT_MULS + (A - 1) * SHOUP_MULS
     inv = 2 if inverse else 0
     muls = macs = 0
     for g in groups:
         C, d = g.hi - g.lo, g.plan.dA
         tr = 2 * recombine_muls(d) + MONT_MULS
-        by += C * ((key_words + from_ext) * 8 * P * N
+        by += C * (key_words * 8 * P * N
                    + (1 + inverse) * mxu_table_bytes(d, S, R, N)
-                   + 2 * 8 * N)
-        muls += C * N * (P * (ext_muls + tr + 2 * key_muls)
-                         + inv * (tr + n_sp * (BARRETT_MULS + SHOUP_MULS)))
-        macs += C * d * d * N * (S + R) * (P + inv)
+                   + B * (from_ext * 8 * P * N + 2 * 8 * N))
+        muls += B * C * N * (P * (ext_muls + tr + 2 * key_muls)
+                             + inv * (tr + n_sp * (BARRETT_MULS
+                                                   + SHOUP_MULS)))
+        macs += B * C * d * d * N * (S + R) * (P + inv)
     return by, muls, macs
 
 
@@ -266,7 +299,8 @@ def check_case(name, label, fn, twin, b, rows, src, replaces,
     """Hold fn() bit for bit against twin() (tensors or tuples of them),
     time both, and keep the first case of each kernel as its row. With
     ``yardsticks`` (a scratch beyond L2, the input x) also the cold-L2
-    time and that of x.clone()."""
+    time and that of x.clone(). Returns the kernel's (median, min, max)
+    ms."""
     import torch
 
     got, want = fn(), twin()
@@ -299,6 +333,7 @@ def check_case(name, label, fn, twin, b, rows, src, replaces,
                           max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=library_ms)
+    return ms, ms_lo, ms_hi
 
 
 def counters():
@@ -345,7 +380,8 @@ def time_and_profile(label, op, fn, brief=False):
     Python's cyclic collector took in them) and profiles three calls
     (torch.profiler; single stream, so kernel times add up to the busy
     time; the host's self time by operator). ``brief``: one line, without
-    the kernels' and the host's top lists."""
+    the kernels' and the host's top lists. Returns the wall's median and
+    the busy time, ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -390,7 +426,7 @@ def time_and_profile(label, op, fn, brief=False):
               f"{n_ops} launches, the port's {busy - ops_ms:.3f} ms "
               f"({sum(e.count for e in kern) // reps - n_ops} launches); "
               f"{clock}")
-        return
+        return statistics.median(times), busy
     print(f"profile ({label}): {wall:.3f} ms/{op} wall with the profiler "
           f"on, device busy {busy:.3f} ms/{op} ({len(kern)} kernel names): "
           f"PyTorch's own kernels {ops_ms:.3f} ms/{op} in "
@@ -411,6 +447,7 @@ def time_and_profile(label, op, fn, brief=False):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]:
         print(f"    {e.self_cpu_time_total / 1e3 / reps:.4f} ms/{op} "
               f"x{e.count // reps} {e.key[:80]}")
+    return statistics.median(times), busy
 
 
 def launch_split(label, fn, roles, groups, reps=20):
@@ -1068,7 +1105,22 @@ def small_ops(e, sk, pk, evk, ct):
         "mean": e.mean(ct, gk), "cov": e.cov(ct, ct2, evk, gk),
         "var": e.var(ct, evk, gk), "pow": e.pow(ct, 5, evk),
         "sqrt": e.sqrt(cx, evk, e=0.3, alpha=0.2),
+        "mult_batched": e.mult_batched([ct, ct2], [cx, ct], evk),
     }
+    sks = [sk, e.create_secret_key()]
+    cpk, cevk, crotk = _collective_keys(e, sks)
+    gcrs = e.generate_galois_crs(gk)
+    cgk = e.multiparty_generate_galois_key(
+        [gk, e.multiparty_create_galois_key(sks[1], gcrs)])
+    ctc = e.encorypt(m, cpk)
+    outs.update({
+        "collective public key": cpk, "collective evk": cevk,
+        "collective rotation key": crotk, "collective Galois key": cgk,
+        "decrypt head": e.multiparty_decrypt_head(ctc, sks[0]),
+        "decrypt partial": e.multiparty_decrypt_partial(ctc, sks[1]),
+        "mult under the collective evk": e.mult(ctc, ctc, cevk),
+        "rotate_galois under the collective Galois key": e.rotate_galois(
+            ctc, cgk, 3)})
     return {k: [t.to("cpu") for t in tensors(v)] for k, v in outs.items()}
 
 
@@ -1077,8 +1129,10 @@ def ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch):
     at the preset, against their twins: the rotation key's transforms of
     the level-0 secret key (B=1 over the ordinary channels; the inverse
     without the Montgomery exit or the reduce, the forward without the
-    entry) and mc_mult's B=1 transforms at level 1 (the forward with the
-    entry, the inverse with the exit and the reduce), in both domains."""
+    entry), mc_mult's B=1 transforms at level 1 (the forward with the
+    entry, the inverse with the exit and the reduce) and the threshold
+    decryption's B=1 inverse at level 1 (the exit without the reduce), in
+    both domains."""
     from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
 
     N, logN = eng.ctx.N, eng.ctx.logN
@@ -1094,7 +1148,9 @@ def ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch):
             ("ntt_fwd", f"B=1 C={C1} enter (mc_mult)", x1, p1.plan,
              dict(pre_enter=True)),
             ("ntt_inv", f"B=1 C={C1} exit+reduce (mc_mult)", x1, p1.plan,
-             dict(post_exit=True, post_reduce=True))):
+             dict(post_exit=True, post_reduce=True)),
+            ("ntt_inv", f"B=1 C={C1} exit, no reduce (decrypt head and "
+             f"partial)", x1, p1.plan, dict(post_exit=True))):
         fwd = name == "ntt_fwd"
         fn = cuda_ntt.ntt_fwd if fwd else cuda_ntt.ntt_inv
         twin = cuda_ntt.ntt_fwd_plain if fwd else cuda_ntt.ntt_inv_plain
@@ -1118,7 +1174,9 @@ def ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch):
             ("mxu_ntt_fwd", f"B=1 C={C1} enter (mc_mult)", y1, m1.mxu,
              dict(enter=True)),
             ("mxu_ntt_inv", f"B=1 C={C1} exitx+reduce (mc_mult)", y1,
-             m1.mxu, dict(inverse=True, exitx=True, post_reduce=True))):
+             m1.mxu, dict(inverse=True, exitx=True, post_reduce=True)),
+            ("mxu_ntt_inv", f"B=1 C={C1} exitx, no reduce (decrypt head and "
+             f"partial)", y1, m1.mxu, dict(inverse=True, exitx=True))):
         check_case(name, f"{preset} {label}, {len(groups)} groups",
                    lambda y=y, g=groups, kw=kw: cuda_mxu.dispatch(y, g,
                                                                   **kw),
@@ -1128,6 +1186,281 @@ def ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch):
                    "liberate_tpu_torch/csrc/mxu_ntt.cu",
                    "liberate_tpu/ntt/mxu_pallas.py:"
                    f"{163 if 'inverse' in kw else 143}")
+
+
+def segment_phase(preset, eng_mxu, gen, rows, cases, bcts=()):
+    """The switch kernels' ct-batched part segments at the level-1 shapes:
+    for each (kernel, B) of ``cases`` B segments of the level's P parts
+    under one random key, bit for bit against the twin and timed (median,
+    min and max of 100) beside the bound of the B switches and beside B
+    single-ciphertext calls on the same words (each segment's words also
+    equal to its single call's). ``bcts``: the batched mult's transform
+    shapes at those batch sizes, #5 at B=4 Bct with the entry and #6 at
+    B=3 Bct with the exit and the reduce. Returns {label: (ms, B single
+    calls ms, bound ms)}."""
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import _ksk_shoup
+    from liberate_tpu_torch.ntt import cuda_mxu
+
+    level = 1
+    parts = eng_mxu.ntt.parts(level)
+    P, N = len(parts), eng_mxu.ctx.N
+    A = max(p.alpha for p in parts)
+    mpack, mpack_sp = eng_mxu.pack(level, -1), eng_mxu.pack(level, -2)
+    C, C_sp = mpack.q.shape[0], mpack_sp.q.shape[0]
+    S, R = mpack.mxu[0].plan.S, mpack.mxu[0].plan.R
+    pack0 = eng_mxu.pack(0, -2)
+    k0 = random_words(pack0.q, (len(eng_mxu.ntt.parts(0)),
+                                eng_mxu.ntt.total_channels, N), gen,
+                      lazy=True)
+    k1 = random_words(pack0.q, k0.shape, gen, lazy=True)
+    shoup = (_ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0))
+    keys = {"mxu_switch": shoup, "mxu_switch_inv": shoup,
+            "mxu_switch_inv_mont": (k0, k1)}
+    terms, off0, piw = eng_mxu._mxu_switch_tables(level)
+    part_off, n_sp = parts[0].part_id, eng_mxu.num_special
+    lines = {"mxu_switch": 815, "mxu_switch_inv": 777,
+             "mxu_switch_inv_mont": 588}
+    out = {}
+    for name, B in cases:
+        st = torch.randint(0, 1 << 62, (B * P, A, N), generator=gen,
+                           device=k0.device, dtype=torch.int64)
+        ks = keys[name]
+
+        def run(x, seg, plain=False, name=name, ks=ks):
+            if name == "mxu_switch":
+                return cuda_mxu.dispatch_switch(
+                    x, terms, off0, piw, *ks, mpack_sp.mxu, level, part_off,
+                    n_sp, plain=plain, parts=seg)
+            return cuda_mxu.dispatch_switch_inv(
+                x, terms, off0, *ks, mpack_sp.mxu, level, part_off,
+                plain=plain, parts=seg)
+
+        def singles(st=st, run=run, B=B):
+            return [run(st[b * P:(b + 1) * P], None) for b in range(B)]
+
+        label = (f"{preset} B={B} segments of P={P} C_sp={C_sp} A={A}"
+                 f"{f' n_sp={n_sp}' if name == 'mxu_switch' else ''}")
+        b = bound(*mxu_switch_work(
+            mpack_sp.mxu, P, A, n_sp if name == "mxu_switch" else 0, S, R,
+            mont=name == "mxu_switch_inv_mont", B=B))
+        ms = check_case(name, label, lambda run=run, st=st: run(st, P),
+                        lambda run=run, st=st: run(st, P, plain=True), b,
+                        rows, "liberate_tpu_torch/csrc/mxu_switch.cu",
+                        f"liberate_tpu/ntt/mxu_pallas.py:{lines[name]}")
+        got = run(st, P)
+        if not all(torch.equal(got[:, i], one)
+                   for i, one in enumerate(singles())):
+            raise AssertionError(f"{name} [{label}]: a segment differs from "
+                                 f"its single-ciphertext switch")
+        one = cuda_ms(singles, 100)
+        print(f"  {name} [{label}]: batched {ms[0]:.4f} ms (min {ms[1]:.4f},"
+              f" max {ms[2]:.4f}) against {B} single-ciphertext calls on the"
+              f" same words {one[0]:.4f} ms (min {one[1]:.4f}, max "
+              f"{one[2]:.4f}): {ms[0] / B:.4f} against {one[0] / B:.4f} ms a"
+              f" ciphertext, bound {b[0] / B:.4f} ms a ciphertext; each "
+              f"segment equal to its single call")
+        out[f"{name} {label}"] = (ms[0], one[0], b[0])
+    for bct in bcts:
+        x4 = random_words(mpack.q, (4 * bct, C, N), gen, lazy=True)
+        x3 = random_words(mpack.q, (3 * bct, C, N), gen, lazy=True)
+        for name, x, kw, line in (
+                ("mxu_ntt_fwd", x4, dict(enter=True), 143),
+                ("mxu_ntt_inv", x3, dict(inverse=True, exitx=True,
+                                         post_reduce=True), 163)):
+            mode = "enter" if name == "mxu_ntt_fwd" else "exitx+reduce"
+            check_case(name, f"{preset} B={x.shape[0]} C={C} {mode} "
+                       f"(batched mult, Bct={bct}), {len(mpack.mxu)} groups",
+                       lambda x=x, kw=kw: cuda_mxu.dispatch(x, mpack.mxu,
+                                                            **kw),
+                       lambda x=x, kw=kw: cuda_mxu.dispatch(
+                           x, mpack.mxu, plain=True, **kw),
+                       bound(*mxu_ntt_work(mpack.mxu, x.shape[0], S, R)),
+                       rows, "liberate_tpu_torch/csrc/mxu_ntt.cu",
+                       f"liberate_tpu/ntt/mxu_pallas.py:{line}")
+    return out
+
+
+def batched_phase(eng, label, run, rows, bcts, timed=()):
+    """mult_batched of Bct pairs of fresh level-0 ciphertexts under the
+    path's evk, each with the launch counters zeroed just before: the words
+    of per-pair mult, decoded error < 1e-4, every kernel of the engine's
+    multiply launched and no other, in the tensor-core domain one switch
+    dispatch a batch (as many switch launches as one mult: one a width
+    group), in the butterfly domain the loop's (Bct mults' launches). For
+    the Bct in ``timed`` the batch's wall (median of 7) and busy time, per
+    batch and per mult; each Bct's peak device memory."""
+    import numpy as np
+    import torch
+
+    sk, pk, evk = run["keys"]
+    n, bmax = eng.num_slots, max(bcts)
+    rng = np.random.default_rng(SEED + 2)
+    ms = [rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
+          for _ in range(2 * bmax)]
+    cts = [eng.encorypt(m, pk) for m in ms]
+    switch = switch_kernels(eng)
+    reset_counters()
+    eng.mult(cts[0], cts[bmax], evk)
+    torch.cuda.synchronize()
+    one = counters()
+    for bct in bcts:
+        a, b = cts[:bct], cts[bmax:bmax + bct]
+        want = [eng.mult(x, y, evk) for x, y in zip(a, b)]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        outs = eng.mult_batched(a, b, evk)
+        torch.cuda.synchronize()
+        path = counters()
+        peak = torch.cuda.max_memory_allocated()
+        same = all(torch.equal(x, y) for o, w in zip(outs, want)
+                   for x, y in zip(o.data, w.data))
+        err = max(abs(eng.absmax_error(eng.decrode(o, sk), x * y))
+                  for o, x, y in zip(outs, ms[:bct], ms[bmax:bmax + bct]))
+        per = {k: (one[k] if eng.use_mxu_ntt else bct * one[k])
+               for k in switch}
+        print(f"{label} mult_batched Bct={bct}: "
+              f"{'equal to' if same else 'DIFFERS from'} per-pair mult word "
+              f"for word, |err| {err:.3e}, launches "
+              f"{ {k: v for k, v in path.items() if v} }, peak device memory "
+              f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before)")
+        if not same:
+            raise AssertionError(f"{label} Bct={bct}: mult_batched differs "
+                                 f"from per-pair mult")
+        if not err < 1e-4:
+            raise AssertionError(f"{label} Bct={bct}: error {err} >= 1e-4")
+        check_launches(f"{label} mult_batched", path, own_kernels(eng), rows)
+        if {k: path[k] for k in switch} != per:
+            raise AssertionError(f"{label} Bct={bct}: switch launches "
+                                 f"{ {k: path[k] for k in switch} }, not "
+                                 f"{per}")
+        if bct in timed:
+            wall, busy = time_and_profile(
+                f"{label} Bct={bct}", "batch",
+                lambda a=a, b=b: eng.mult_batched(a, b, evk), brief=True)
+            print(f"  {label} mult_batched Bct={bct}: {wall / bct:.3f} ms "
+                  f"wall and {busy / bct:.3f} ms busy a mult")
+        del outs, want
+
+
+def _collective_keys(e, sks):
+    """The parties' collective public key, evk and rotation key (delta 1),
+    each over one common CRS."""
+    pk0 = e.multiparty_create_public_key(sks[0])
+    crs = e.multiparty_public_crs(pk0)
+    cpk = e.multiparty_create_collective_public_key(
+        [pk0] + [e.multiparty_create_public_key(s, a=crs) for s in sks[1:]])
+    shares = [e.create_key_switching_key(sks[0], sks[0])]
+    crs = e.generate_rotation_crs(shares[0])
+    shares += [e.multiparty_create_key_switching_key(s, s, a=crs)
+               for s in sks[1:]]
+    summed = e.multiparty_sum_evk_share(shares)
+    cevk = e.multiparty_sum_evk_share_mult(
+        [e.multiparty_mult_evk_share_sum(summed, s) for s in sks])
+    rotk0 = e.multiparty_create_rotation_key(sks[0], 1)
+    crs = e.generate_rotation_crs(rotk0)
+    crotk = e.multiparty_generate_rotation_key(
+        [rotk0] + [e.multiparty_create_rotation_key(s, 1, a=crs)
+                   for s in sks[1:]])
+    return cpk, cevk, crotk
+
+
+def _threshold_decrypt(e, ct, sks):
+    pcts = [e.multiparty_decrypt_head(ct, sks[0])]
+    pcts += [e.multiparty_decrypt_partial(ct, s) for s in sks[1:]]
+    return e.multiparty_decrypt_fusion(pcts, level=ct.level)
+
+
+def multiparty_phase(eng, label, rows, parties=3):
+    """Threshold FHE with the launch counters zeroed just before: the
+    parties' secret keys, the collective public key, evk and rotation key,
+    a ciphertext under the collective key, mult under the collective evk,
+    rotate_single under the collective rotation key, the threshold
+    decryption of both; each step timed once (host clock, synchronised);
+    decoded errors < 1e-4; the engine's transforms and switch kernels
+    launched and no other. Prints the phase's peak device memory."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return res
+
+    sks = step("secret keys", lambda: [eng.create_secret_key()
+                                       for _ in range(parties)])
+    cpk, cevk, crotk = step("collective pk, evk and rotation key",
+                            lambda: _collective_keys(eng, sks))
+    m = np.random.default_rng(SEED + 3).uniform(-1, 1, eng.num_slots)
+    ct = step("encorypt", lambda: eng.encorypt(m, cpk))
+    ctm = step("mult", lambda: eng.mult(ct, ct, cevk))
+    rot = step("rotate_single", lambda: eng.rotate_single(ctm, crotk))
+    dec_m = step("threshold decrypt", lambda: _threshold_decrypt(eng, ctm,
+                                                                 sks))
+    dec_r = _threshold_decrypt(eng, rot, sks)
+    path = counters()
+    errs = {"mult": abs(eng.absmax_error(dec_m[:eng.num_slots], m * m)),
+            "rotate_single": abs(eng.absmax_error(dec_r[:eng.num_slots],
+                                                  np.roll(m * m, 1)))}
+    print(f"{label} multiparty ({parties} parties): |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; once each: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                        for k, v in times.items())
+          + f"; launches { {k: v for k, v in path.items() if v} }; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB held before)")
+    for k, e in errs.items():
+        if not e < 1e-4:
+            raise AssertionError(f"{label} multiparty {k} error {e} >= 1e-4")
+    check_launches(f"{label} multiparty", path, own_kernels(eng), rows)
+
+
+def data_phase(eng, run):
+    """save/load, clone and move_to on the card: the loaded ciphertext on
+    the card (and on the CPU without the move) with the saved words; an
+    in-place write to a clone of the evk leaves the evk as it was; gpu2cpu
+    then cpu2gpu gives the words back on the card."""
+    import torch
+
+    ct, evk = run["out"], run["keys"][2]
+    path = REPO / "build" / "liberate_tpu_torch" / "chip_smoke_ct.pkl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    back = eng.load(eng.save(ct, path))
+    t_io = time.perf_counter() - t
+    host = eng.load(path, move_to_device=False)
+    path.unlink()
+    clone = eng.clone(evk)
+    clone.data[0].data[0][0, 0] += 1
+    kept = not torch.equal(clone.data[0].data[0], evk.data[0].data[0])
+    moved = eng.move_to(ct, "gpu2cpu")
+    again = eng.move_to(moved, "cpu2gpu")
+    checks = {
+        "load": eng.device(back) == "cuda" and all(
+            torch.equal(a, b) for a, b in zip(back.data, ct.data)),
+        "load without the move": eng.device(host) == "cpu" and all(
+            torch.equal(a.to(b.device), b) for a, b in zip(host.data,
+                                                          ct.data)),
+        "clone": kept,
+        "move_to": eng.device(moved) == "cpu" and eng.device(again) == "cuda"
+        and all(torch.equal(a, b) for a, b in zip(again.data, ct.data))}
+    print(f"data phase: save and load of a ciphertext {t_io * 1e3:.1f} ms; "
+          + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                      for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"data phase: {checks}")
 
 
 def switch_core_path(eng, evk, gen, label, rows):
@@ -1420,7 +1753,7 @@ def engine_start(preset, dev):
     torch.cuda.empty_cache()
 
 
-def preset_phase(preset, dev, gen, rows, scratch):
+def preset_phase(preset, dev, gen, rows, scratch, new_phases):
     """Bronze and platinum: the engines' start (engine_start, then the
     butterfly and tensor-core engines from the cached context and
     tables), every kernel of their multiply against its twin, the split
@@ -1447,6 +1780,9 @@ def preset_phase(preset, dev, gen, rows, scratch):
     print(f"{preset} MXU engine (context and tables from the cache): "
           f"{time.perf_counter() - t:.2f} s")
     kernel_phase(preset, eng, eng_mxu, gen, rows, False, scratch)
+    t = time.perf_counter()
+    segment_phase(preset, eng_mxu, gen, rows, SEGMENTS[preset])
+    new_phases[f"{preset} segments"] = time.perf_counter() - t
     if preset == "platinum":
         # By now this process has traced some 150 profiler windows, and the
         # profiler drops whole windows here (about half the platinum calls,
@@ -1467,9 +1803,13 @@ def preset_phase(preset, dev, gen, rows, scratch):
                              split)
         del eng_unsplit
     del split
-    ops_phase(eng_mxu, f"{preset} MXU", drive_path(eng_mxu, f"{preset} MXU",
-                                                   rows), rows)
-    del eng_mxu
+    run = drive_path(eng_mxu, f"{preset} MXU", rows)
+    ops_phase(eng_mxu, f"{preset} MXU", run, rows)
+    t = time.perf_counter()
+    batched_phase(eng_mxu, f"{preset} MXU", run, rows,
+                  (4,) if preset == "bronze" else (2,))
+    new_phases[f"{preset} MXU batched"] = time.perf_counter() - t
+    del eng_mxu, run
     if preset == "platinum":
         torch.cuda.empty_cache()
         eng_mont = liberate_tpu_torch.CkksEngine(
@@ -1586,6 +1926,7 @@ def main():
     # -- 4. kernels against their twins at the silver and gold shapes ----------
     rows = {}
     engines = {}
+    new_phases = {}
     scratch = torch.empty(16 << 20, dtype=torch.int64, device=dev)
     for preset in ("silver", "gold"):
         params = liberate_tpu_torch.params[preset]
@@ -1603,12 +1944,17 @@ def main():
         kernel_phase(preset, eng, eng_mxu, gen, rows,
                      opts.compile_yardstick and preset == "silver", scratch)
         ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch)
+        t = time.perf_counter()
+        segment_phase(preset, eng_mxu, gen, rows, SEGMENTS[preset],
+                      bcts=(4, 8) if preset == "silver" else (4,))
+        new_phases[f"{preset} segments"] = time.perf_counter() - t
         if preset == "gold":
             split_phase(eng_mxu, gen)
             int8_yardstick(eng_mxu, gen)
     prime_plans_phase(dev, gen, rows, scratch)
 
     # -- 5. the path at logN 8: card against the CPU twins -----------------------
+    t = time.perf_counter()
     for domain, kw in (
             ("butterfly", dict(use_mxu_ntt=False)),
             ("butterfly unsplit", dict(use_split_switch=False)),
@@ -1637,29 +1983,50 @@ def main():
                                  f"ciphertexts differ from the CPU twins'")
         print(f"logN 8 {domain} path: card and CPU twins give identical "
               f"keys, ciphertexts and mult output")
-        card, cpu = new_ops
-        differ = [k for k in card if len(card[k]) != len(cpu[k]) or not all(
-            torch.equal(a, b) for a, b in zip(card[k], cpu[k]))]
+        on_card, on_cpu = new_ops
+        differ = [k for k in on_card
+                  if len(on_card[k]) != len(on_cpu[k]) or not all(
+                      torch.equal(a, b) for a, b in zip(on_card[k],
+                                                        on_cpu[k]))]
         if differ:
             raise AssertionError(f"logN 8 {domain}: the card's words differ "
                                  f"from the CPU twins' in {differ}")
         print(f"logN 8 {domain} path: card and CPU twins give identical "
-              f"words for {len(card)} operations ({', '.join(card)})")
+              f"words for {len(on_card)} operations ({', '.join(on_card)})")
+    print(f"logN 8 card against the CPU: {time.perf_counter() - t:.1f} s")
 
     # -- 6. the paths through the public API -------------------------------------
     eng, eng_mxu = engines["silver"]
     split = drive_path(eng, "silver butterfly", rows)
     split_ops = ops_phase(eng, "silver butterfly", split, rows, timed=True)
     galois_phase(eng, "silver butterfly", split, rows)
+    t = time.perf_counter()
+    batched_phase(eng, "silver butterfly", split, rows, (1, 2, 4, 8),
+                  timed=(1, 8))
+    multiparty_phase(eng, "silver butterfly", rows)
+    new_phases["silver butterfly batched and multiparty"] = (
+        time.perf_counter() - t)
     mxu = drive_path(eng_mxu, "silver MXU", rows)
     mxu_ops = ops_phase(eng_mxu, "silver MXU", mxu, rows, timed=True)
     galois_phase(eng_mxu, "silver MXU", mxu, rows)
+    t = time.perf_counter()
+    batched_phase(eng_mxu, "silver MXU", mxu, rows, (1, 2, 4, 8),
+                  timed=(1, 2, 4, 8))
+    multiparty_phase(eng_mxu, "silver MXU", rows)
+    data_phase(eng_mxu, mxu)
+    new_phases["silver MXU batched, multiparty and data"] = (
+        time.perf_counter() - t)
     eng_mont = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED, use_mxu_ntt=True,
         use_shoup_ksk=False)
-    evk_mont = drive_path(eng_mont, "silver MXU Montgomery-key",
-                          rows)["keys"][2]
+    mont = drive_path(eng_mont, "silver MXU Montgomery-key", rows)
+    evk_mont = mont["keys"][2]
     rotate_check(eng_mont, "silver MXU Montgomery-key", mxu_ops, rows)
+    t = time.perf_counter()
+    batched_phase(eng_mont, "silver MXU Montgomery-key", mont, rows,
+                  (1, 2, 4, 8), timed=(1, 2, 4, 8))
+    new_phases["silver MXU Montgomery-key batched"] = time.perf_counter() - t
+    del mont
     switch_core_path(eng_mont, evk_mont, gen, "silver MXU switch core", rows)
     eng_unsplit = liberate_tpu_torch.CkksEngine(
         **liberate_tpu_torch.params["silver"], seed=SEED,
@@ -1677,15 +2044,24 @@ def main():
     del engines["silver"]
     eng, eng_mxu = engines.pop("gold")
     for e, label in ((eng, "gold butterfly"), (eng_mxu, "gold MXU")):
-        ops_phase(e, label, drive_path(e, label, rows), rows, timed=True)
-    del eng, eng_mxu, e
+        run = drive_path(e, label, rows)
+        ops_phase(e, label, run, rows, timed=True)
+    t = time.perf_counter()
+    batched_phase(eng_mxu, "gold MXU", run, rows, (1, 2, 4),
+                  timed=(1, 2, 4))
+    multiparty_phase(eng_mxu, "gold MXU", rows)
+    new_phases["gold MXU batched and multiparty"] = time.perf_counter() - t
+    del eng, eng_mxu, e, run
     torch.cuda.empty_cache()
 
     # -- 7. bronze and platinum: start, kernels, paths ---------------------------
     for preset in ("bronze", "platinum"):
-        preset_phase(preset, dev, gen, rows, scratch)
+        preset_phase(preset, dev, gen, rows, scratch, new_phases)
     del scratch
 
+    print("the phases this slice added: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in new_phases.items())
+        + f"; {sum(new_phases.values()):.1f} s in all")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -58,10 +58,13 @@
 // table, B = digits) at half the rate of the same kernel without them. In
 // the switch's stage 2 the part loop runs inside the tile: the table
 // streams through the ring once per part, and both key-product sums stay
-// in registers. The tiles of one channel and row tile are neighbours in
-// the grid, so the table comes from device memory about once and then from
-// L2. Rows past O and columns past J (logN 8) are computed on whatever
-// shared memory holds and never written.
+// in registers. A ct-batched switch runs B segments of P parts (bp = b*P +
+// p): the block of segment b walks parts b*P .. b*P + P - 1, reads the key
+// at part p (one key for every ciphertext) and writes segment b's sums.
+// The tiles of one channel and row tile, every segment's among them, are
+// neighbours in the grid, so the table comes from device memory about once
+// and then from L2. Rows past O and columns past J (logN 8) are computed
+// on whatever shared memory holds and never written.
 #pragma once
 
 #include <cstdint>
@@ -141,6 +144,8 @@ struct Stage {
   long long x_sb, x_sc;
   u64* y;            // output words at y[b*y_sb + c*y_sc + o*J + j]
   long long y_sb, y_sc;
+  long long y_ss;    // key sums: segment b's at y[b*y_ss + ...], both
+                     // halves y_sb apart
   int K, J, O, N;
   const int8_t* table;  // [C, DA*O, DB*K]
   const int* rs;        // [C, DA*O]
@@ -149,7 +154,7 @@ struct Stage {
   const u64 *q, *k, *bp, *whi, *wphi, *corr;  // [C]
   int post_reduce;      // kOut: [0, 2q) -> [0, q)
   // kKsk / kKskMont: key products with both key halves, summed over P
-  // parts (k0wp, k1wp: the Shoup quotients, kKsk only)
+  // parts of each segment (k0wp, k1wp: the Shoup quotients, kKsk only)
   const u64 *k0w, *k0wp, *k1w, *k1wp;
   long long k_sp, k_sc;
   int P;
@@ -366,7 +371,7 @@ __device__ __forceinline__ void produce(const Stage& a, const Smem<D, EPI>& sm,
   const int nparts = key_sums<EPI>() ? a.P : 1;
   int it = 0, win = 0;
   for (int p = 0; p < nparts; ++p) {
-    const int bb = key_sums<EPI>() ? p : b;
+    const int bb = key_sums<EPI>() ? b * a.P + p : b;
     for (int k0 = 0; k0 < a.K; k0 += KW, ++win) {
       const int xs = win % kXSlots;
       mbar_wait(&sm.xempty[xs], ((win / kXSlots) & 1) ^ 1);
@@ -576,7 +581,8 @@ __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
           const int o = o0 + 8 * i + 2 * t + e;
           const int j = j0 + jl + 8 * h;
           if (o < a.O && j < a.J) {
-            const long long n = c * a.y_sc + (long long)o * a.J + j;
+            const long long n =
+                b * a.y_ss + c * a.y_sc + (long long)o * a.J + j;
             a.y[n] = sum0[i][h][e];
             a.y[a.y_sb + n] = sum1[i][h][e];
           }
@@ -586,7 +592,8 @@ __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
 
 // One stage: one output tile per block. Grid: (B * ceil(J / 128),
 // ceil(O / TO), C), the batch and column tiles of a row tile of a channel
-// next to each other (B = 1 for the key sums: a tile walks the P parts);
+// next to each other (for the key sums B is the segments: a tile walks the
+// P parts of its segment);
 // kThreads threads: the two consumer warpgroups, then the producer
 // warpgroup.
 template <int D, int IN, int EPI>
@@ -697,9 +704,9 @@ int launch_d(Stage a, int B, int C, cudaStream_t st) {
   constexpr int TO = tile_o<D, EPI>();
   constexpr bool kSum = key_sums<EPI>();
   int rc = encode_table(&a.tmap, a.table, D, a.O, a.K, C, TO);
-  if (rc == 0) rc = encode_words(&a.xmap, a, IN, C, kSum ? a.P : B);
+  if (rc == 0) rc = encode_words(&a.xmap, a, IN, C, kSum ? B * a.P : B);
   if (rc != 0) return rc;
-  const dim3 grid((kSum ? 1 : B) * ((a.J + kTileJ - 1) / kTileJ),
+  const dim3 grid(B * ((a.J + kTileJ - 1) / kTileJ),
                   (a.O + TO - 1) / TO, C);
   constexpr int smem = stage_smem<D, EPI>();
   rc = (int)cudaFuncSetAttribute(stage<D, IN, EPI>,

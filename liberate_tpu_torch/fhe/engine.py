@@ -1,7 +1,7 @@
 """The CKKS engine on PyTorch: keys, encryption, the ct x ct multiply and
-its key switch (relinearize, square, switch_key), additions, scalar and
-plaintext operations, rotations, conjugation and the statistics built on
-them.
+its key switch (relinearize, square, switch_key), the batched multiply,
+additions, scalar and plaintext operations, rotations, conjugation and the
+statistics built on them, threshold (multiparty) FHE and data management.
 
 A polynomial is one int64 tensor [C, N] of 62-bit words on the engine's
 device. Level/layout convention: the global prime order is
@@ -28,8 +28,11 @@ transform, key products summed over the parts, inverse, and, up to
 the plain-domain mod-down follows as torch ops (``switch_route``).
 """
 
+import datetime
 import math
+import pickle
 from collections import OrderedDict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,6 +97,19 @@ def _decrypt_double_pt(ct0, ct1, sk, level, pack):
     a_n = ops.enter_ntt(ct1, pack)
     sa = ops.intt_exit(ops.mont_mult(a_n, sk, pack), pack)
     return ops.reduce_2q(ops.mont_add(ct0, sa, pack), pack)
+
+
+def _mp_decrypt_partial(ct1, sk, level, pack):
+    """a*sk of one party: one B=1 enter+transform, the product, one B=1
+    inverse with the Montgomery exit and no reduce (lazy [0, 2q))."""
+    sk = ops.fit_channels(sk[level:], pack.q.shape[0])
+    a_n = ops.enter_ntt(ct1, pack)
+    return ops.intt_exit(ops.mont_mult(a_n, sk, pack), pack)
+
+
+def _mp_decrypt_head(ct0, ct1, sk, level, pack):
+    """ct0 + a*sk of the first party, not reduced."""
+    return ops.mont_add(ct0, _mp_decrypt_partial(ct1, sk, level, pack), pack)
 
 
 def _decrypt_triplet_pt(d0, d1, d2, sk, level, pack):
@@ -263,14 +279,14 @@ def _rotate_ct_core(d, gather, neg, pack):
 
 
 def _pre_extend(a, start, alpha, part):
-    """Divided-difference state of one gadget part: a list of alpha
-    [1, N] rows (signed int64; Montgomery multiplies mirror the CUDA int64
-    semantics)."""
-    a_part = a[start:start + alpha]
+    """Divided-difference state of one gadget part of a [..., C, N]: a list
+    of alpha [..., 1, N] rows (signed int64; Montgomery multiplies mirror
+    the CUDA int64 semantics). Leading axes are a ciphertext batch."""
+    a_part = a[..., start:start + alpha, :]
     pk = part.pack
-    state = [a_part[0:1]] * alpha
+    state = [a_part[..., 0:1, :]] * alpha
     for i in range(alpha - 1):
-        diff = a_part[i + 1:i + 2] - state[i + 1]
+        diff = a_part[..., i + 1:i + 2, :] - state[i + 1]
         Y = u64.montmul(diff, part.Y_scalar[i],
                         pk.ql[i + 1], pk.qh[i + 1], pk.kl[i + 1],
                         pk.kh[i + 1])
@@ -280,7 +296,7 @@ def _pre_extend(a, start, alpha, part):
                               *(_col(t[i + 2:alpha]) for t in
                                 (pk.ql, pk.qh, pk.kl, pk.kh)))
             for j in range(i + 2, alpha):
-                state[j] = state[j] + new[j - i - 2:j - i - 1]
+                state[j] = state[j] + new[..., j - i - 2:j - i - 1, :]
     return state
 
 
@@ -352,16 +368,19 @@ def _ksk_shoup(k, pack):
 
 @errors.log_error
 class CkksEngine:
-    """The user-facing CKKS engine, single party: keys (secret, public,
-    evaluation, key-switching, rotation, conjugation and Galois),
-    encode/encrypt, decrypt/decode of ciphertexts and triplets, ct x ct
-    multiply and square with or without relinearisation, relinearize,
-    switch_key, add/sub/negate, scalar and plaintext operations
-    (``mult``, ``add`` and ``sub`` dispatch on the operands' types),
-    rotations, conjugation, and sum, mean, cov, pow, sqrt, var and std.
+    """The user-facing CKKS engine: keys (secret, public, evaluation,
+    key-switching, rotation, conjugation and Galois), encode/encrypt,
+    decrypt/decode of ciphertexts and triplets, ct x ct multiply and square
+    with or without relinearisation, the batched multiply
+    (``mult_batched``, ``mult_stacked``), relinearize, switch_key,
+    add/sub/negate, scalar and plaintext operations (``mult``, ``add`` and
+    ``sub`` dispatch on the operands' types), rotations, conjugation, sum,
+    mean, cov, pow, sqrt, var and std; threshold (multiparty) keys and
+    decryption; clone, device moves, save/load and a profiler trace.
 
-    ``device``: where every tensor lives; ``None`` means ``cuda:0`` and
-    raises when no CUDA device is present. ``device="cpu"`` runs the
+    ``device``: where every tensor lives (``torch_device``; ``device(x)``
+    answers where a DataStruct lies); ``None`` means ``cuda:0`` and raises
+    when no CUDA device is present. ``device="cpu"`` runs the
     kernels' plain twins. ``use_mxu_ntt``: run every transform and the key
     switch in the tensor-core kernels (natural-order NTT domain) instead of
     the butterfly kernels; one engine uses one domain throughout, and its
@@ -383,7 +402,7 @@ class CkksEngine:
                  **ctx_params):
         if mesh_shape not in (None, 1):
             raise ValueError("the port runs on one device (mesh_shape=None)")
-        self.device = resolve_device(device)
+        self.torch_device = resolve_device(device)
         self.bias_guard = bias_guard
         self.norm = norm
         self.version = VERSION
@@ -392,7 +411,8 @@ class CkksEngine:
         self.use_split_switch = bool(use_split_switch)
 
         self.ctx = CkksContext(verbose=verbose, **ctx_params)
-        self.ntt = NttContext(self.ctx, self.device, use_mxu=self.use_mxu_ntt)
+        self.ntt = NttContext(self.ctx, self.torch_device,
+                              use_mxu=self.use_mxu_ntt)
 
         # The deepest usable level.
         self.num_levels = self.ntt.num_levels - 1
@@ -402,7 +422,7 @@ class CkksEngine:
 
         self.rng = Csprng(self.ctx.N, self.num_ordinary,
                           max(self.num_special, 2), sigma=self.ctx.sigma,
-                          seed=seed, device=self.device)
+                          seed=seed, device=self.torch_device)
 
         self.int_scale = 2 ** self.ctx.scale_bits
         self.scale = np.float64(self.int_scale)
@@ -456,7 +476,7 @@ class CkksEngine:
         }
 
     def _tensor(self, vals):
-        return u64.tensor(vals, self.device)
+        return u64.tensor(vals, self.torch_device)
 
     # -- precomputation -------------------------------------------------------
 
@@ -574,7 +594,7 @@ class CkksEngine:
         encoded = encdec.encode(m, rng=self.rng, scale=self.scale,
                                 deviation=self.deviations[level],
                                 norm=self.norm)
-        return torch.from_numpy(encoded[None, :]).to(self.device)
+        return torch.from_numpy(encoded[None, :]).to(self.torch_device)
 
     def decode(self, m, level=0, is_real: bool = False):
         """Signed plaintext [1, N] -> complex message (N/2 slots)."""
@@ -751,7 +771,7 @@ class CkksEngine:
             dc = self._tensor([dc_scale % qi for qi in q_lvl])
             pt = self.rng.randround(pt * self.scale)
         pt = torch.from_numpy(np.asarray(pt, dtype=np.int64)[None, :]).to(
-            self.device)
+            self.torch_device)
 
         e0e1 = self.rng.discrete_gaussian(repeats=2)
         v = self.rng.randint(amax=2, shift=0, repeats=1)
@@ -860,7 +880,7 @@ class CkksEngine:
             C_sp = self.ntt.num_channels(level, -2)
             nterms = max(max(p.alpha for p in parts) - 1, 1)
             terms = torch.zeros((len(parts), nterms, 3, C_sp),
-                                dtype=torch.int64, device=self.device)
+                                dtype=torch.int64, device=self.torch_device)
             for pi, p in enumerate(parts):
                 for i, sh in enumerate(p.L_enter_sh):
                     terms[pi, i] = torch.stack(
@@ -875,14 +895,20 @@ class CkksEngine:
         state of each part, zero-padded to A rows and stacked [P, A, N],
         goes through the switch kernels (extension, transform, key
         products, inverse), which also fold in the mod-down on the
-        ``switch_route`` that does; else the Shoup mod-down follows."""
+        ``switch_route`` that does; else the Shoup mod-down follows.
+
+        A ciphertext batch a [B, C, N] runs as B segments of P parts
+        ([B*P, A, N], b-major) through one dispatch of the same kernels;
+        (d0, d1) are then [B, C, N] each."""
         parts = self.ntt.parts(level)
         A = max(p.alpha for p in parts)
-        zero = torch.zeros_like(a[0:1])
+        zero = torch.zeros_like(a[..., 0:1, :])
         st = torch.stack([
-            torch.cat(s + [zero] * (A - len(s)))
+            torch.cat(s + [zero] * (A - len(s)), dim=-2)
             for s in (_pre_extend(a, p.local_start, p.alpha, p)
-                      for p in parts)])
+                      for p in parts)], dim=-3)
+        seg = None if a.dim() == 2 else len(parts)
+        st = st.reshape(-1, A, a.shape[-1])
         terms, off0, piw = self._mxu_switch_tables(level)
         k0, k1 = self._ksk_stacked(ksk)
         pack_sp = self.pack(level, -2)
@@ -890,11 +916,11 @@ class CkksEngine:
         if switch_route(self.ctx.logN, self.use_shoup_ksk) == "mxu_switch":
             d = cuda_mxu.dispatch_switch(st, terms, off0, piw, k0, k1,
                                          pack_sp.mxu, level, part_off,
-                                         self.num_special)
+                                         self.num_special, parts=seg)
             C = self.ntt.num_channels(level, -1)
-            return d[0, :C], d[1, :C]
+            return d[0, ..., :C, :], d[1, ..., :C, :]
         d = cuda_mxu.dispatch_switch_inv(st, terms, off0, k0, k1, pack_sp.mxu,
-                                         level, part_off)
+                                         level, part_off, parts=seg)
         d = _mod_down_shoup(d, pack_sp, self.pack(level, -1),
                             self.PiWs[level], self.bp_sp[level][0],
                             self.num_special)
@@ -980,6 +1006,53 @@ class CkksEngine:
         ct_mult = DataStruct(_cc_mult_core(x0, x1, y0, y1, pack), False,
                              True, True, types.origins["ctt"], nxt, self.hash)
         return self.relinearize(ct_mult, evk) if relin else ct_mult
+
+    # -- the batched mult -------------------------------------------------------
+
+    def mult_batched(self, cts_a, cts_b, evk: DataStruct):
+        """B independent ct x ct multiplies with relinearisation and rescale
+        at one common level: a list of B ciphertexts. In the tensor-core
+        domain one batched program (``mult_stacked``): one B=4B rescale and
+        enter+transform, one B=3B inverse, one switch dispatch of B ct
+        segments; in the butterfly domain a loop of ``cc_mult``, as the JAX
+        engine loops where it has no ct-batched kernel."""
+        if len(cts_a) != len(cts_b) or not cts_a:
+            raise errors.DifferentTypeError(a=len(cts_a), b=len(cts_b))
+        if not self.use_mxu_ntt:
+            return [self.cc_mult(a, b, evk) for a, b in zip(cts_a, cts_b)]
+        level = cts_a[0].level
+        for ct in (*cts_a, *cts_b):
+            if ct.level != level:
+                raise errors.NotMatchType(origin=f"level {ct.level}",
+                                          to=f"level {level}")
+        out = self.mult_stacked(self.stack_cts(cts_a), self.stack_cts(cts_b),
+                                evk)
+        return self.unstack_ct(out)
+
+    def stack_cts(self, cts) -> DataStruct:
+        """B same-level ciphertexts as one with [B, C, N] parts."""
+        first = cts[0]
+        return first._replace(data=tuple(
+            torch.stack([c.data[i] for c in cts])
+            for i in range(len(first.data))))
+
+    def unstack_ct(self, ct: DataStruct):
+        """A stacked ciphertext back into its B ciphertexts."""
+        return [ct._replace(data=tuple(d[i] for d in ct.data))
+                for i in range(ct.data[0].shape[0])]
+
+    def mult_stacked(self, ct_a: DataStruct, ct_b: DataStruct,
+                     evk: DataStruct) -> DataStruct:
+        """The multiply of stacked ciphertexts (``stack_cts``). In the
+        tensor-core domain every stage of ``cc_mult`` takes the batch axis;
+        in the butterfly domain it unstacks, multiplies pair by pair and
+        restacks (the JAX engine's ``mult_stacked`` has no such guard and
+        gives wrong words where its stages are not batched)."""
+        if self.use_mxu_ntt:
+            return self.cc_mult(ct_a, ct_b, evk)
+        return self.stack_cts([
+            self.cc_mult(a, b, evk)
+            for a, b in zip(self.unstack_ct(ct_a), self.unstack_ct(ct_b))])
 
     def level_up(self, ct: DataStruct, dst_level: int) -> DataStruct:
         if ct.origin != types.origins["ct"]:
@@ -1158,8 +1231,9 @@ class CkksEngine:
         if key not in self._perm_device_cache:
             gather, neg = perm_data
             self._perm_device_cache[key] = (
-                torch.from_numpy(gather.astype(np.int64)).to(self.device),
-                torch.from_numpy(neg).to(self.device))
+                torch.from_numpy(gather.astype(np.int64)).to(
+                    self.torch_device),
+                torch.from_numpy(neg).to(self.torch_device))
         return self._perm_device_cache[key]
 
     def _rotated_sk(self, sk: DataStruct, perm_key, perm_data) -> DataStruct:
@@ -1325,6 +1399,215 @@ class CkksEngine:
 
     def reduce_error(self, ct):
         return self.mult_scalar(ct, 1.0)
+
+    # -- multiparty (threshold) FHE --------------------------------------------------
+
+    def multiparty_public_crs(self, pk: DataStruct):
+        return pk.data[1]
+
+    def multiparty_create_public_key(self, sk: DataStruct, a=None,
+                                     include_special=False) -> DataStruct:
+        return self.create_public_key(sk, include_special=include_special,
+                                      a=a)
+
+    def multiparty_create_collective_public_key(self,
+                                                pks: list) -> DataStruct:
+        """The parties' pk0 summed over the common CRS."""
+        pack = self.pack(0, -2 if pks[0].include_special else -1)
+        b = pks[0].data[0]
+        for pk in pks[1:]:
+            b = ops.mont_add(b, pk.data[0], pack)
+        return pks[0]._replace(data=(b, pks[0].data[1]),
+                               origin=types.origins["pk"])
+
+    def multiparty_decrypt_head(self, ct: DataStruct, sk: DataStruct):
+        """ct0 + a*sk_0 of the first party, lazy [0, 2q)."""
+        return _mp_decrypt_head(ct.data[0], ct.data[1], sk.data, ct.level,
+                                self.pack(ct.level, -1))
+
+    def multiparty_decrypt_partial(self, ct: DataStruct, sk: DataStruct):
+        """a*sk_i of every other party, lazy [0, 2q)."""
+        return _mp_decrypt_partial(ct.data[1], sk.data, ct.level,
+                                   self.pack(ct.level, -1))
+
+    def multiparty_decrypt_fusion(self, pcts: list, level=0,
+                                  include_special=False):
+        """The head and partial decryptions summed and decoded."""
+        pack = self.pack(level, -1)
+        pt = pcts[0]
+        for pct in pcts[1:]:
+            pt = ops.mont_add(pt, pct, pack)
+        scaled = self._final_rescale_signed(ops.reduce_2q(pt, pack), level)
+        return self.decode(scaled, level=level)
+
+    def multiparty_create_key_switching_key(self, sk_src: DataStruct,
+                                            sk_dst: DataStruct,
+                                            a=None) -> DataStruct:
+        return self.create_key_switching_key(sk_src, sk_dst, a=a)
+
+    def multiparty_create_rotation_key(self, sk: DataStruct, delta: int,
+                                       a=None) -> DataStruct:
+        return self.create_rotation_key(sk, delta, a=a)
+
+    def _sum_ksk_pk0(self, ksks: list) -> DataStruct:
+        """The key-switching-key shares with their pk0 halves summed."""
+        pack = self.pack(0, -2)
+        out_parts = []
+        for i, part in enumerate(ksks[0].data):
+            pk0 = part.data[0]
+            for other in ksks[1:]:
+                pk0 = ops.mont_add(pk0, other.data[i].data[0], pack)
+            out_parts.append(part._replace(data=(pk0, part.data[1])))
+        return ksks[0]._replace(data=out_parts)
+
+    def multiparty_generate_rotation_key(self, rotks: list) -> DataStruct:
+        return self._sum_ksk_pk0(rotks)
+
+    def generate_rotation_crs(self, rotk: DataStruct):
+        if (types.origins["rotk"] not in rotk.origin
+                and types.origins["ksk"] != rotk.origin):
+            raise errors.NotMatchType(origin=rotk.origin,
+                                      to=types.origins["ksk"])
+        return [ksk.data[1] for ksk in rotk.data]
+
+    def generate_galois_crs(self, galk: DataStruct):
+        if galk.origin != types.origins["galk"]:
+            raise errors.NotMatchType(origin=galk.origin,
+                                      to=types.origins["galk"])
+        return [[ksk.data[1] for ksk in rotk.data] for rotk in galk.data]
+
+    def multiparty_create_galois_key(self, sk: DataStruct,
+                                     a: list) -> DataStruct:
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        parts = [self.multiparty_create_rotation_key(sk, delta, a=a[i])
+                 for i, delta in enumerate(self.galois_deltas)]
+        return DataStruct(parts, True, True, True, types.origins["galk"], 0,
+                          self.hash)
+
+    def multiparty_generate_galois_key(self, galks: list) -> DataStruct:
+        return galks[0]._replace(data=[
+            self._sum_ksk_pk0([g.data[i] for g in galks])
+            for i in range(len(galks[0].data))])
+
+    def multiparty_sum_evk_share(self, evks_share: list) -> DataStruct:
+        return self._sum_ksk_pk0(evks_share)
+
+    def multiparty_mult_evk_share_sum(self, evk_sum: DataStruct,
+                                      sk: DataStruct) -> DataStruct:
+        """Both halves of every part times the party's secret share, over
+        the special primes too."""
+        if sk.origin != types.origins["sk"]:
+            raise errors.NotMatchType(origin=sk.origin, to=types.origins["sk"])
+        if not sk.include_special:
+            raise errors.SecretKeyNotIncludeSpecialPrime()
+        pack = self.pack(0, -2)
+        return evk_sum._replace(data=[
+            part._replace(data=tuple(ops.mont_mult(d, sk.data, pack)
+                                     for d in part.data))
+            for part in evk_sum.data])
+
+    def multiparty_sum_evk_share_mult(self,
+                                      evk_sum_mult: list) -> DataStruct:
+        pack = self.pack(0, -2)
+        out_parts = []
+        for i, part in enumerate(evk_sum_mult[0].data):
+            b, a = part.data
+            for other in evk_sum_mult[1:]:
+                b = ops.mont_add(b, other.data[i].data[0], pack)
+                a = ops.mont_add(a, other.data[i].data[1], pack)
+            out_parts.append(part._replace(data=(b, a)))
+        return evk_sum_mult[0]._replace(data=out_parts)
+
+    # -- data management -------------------------------------------------------------
+
+    def _map(self, text, fn):
+        """A copy of the DataStruct tree with fn applied to every tensor."""
+        if isinstance(text, DataStruct):
+            return text._replace(data=self._map(text.data, fn))
+        if isinstance(text, (tuple, list)):
+            return type(text)(self._map(d, fn) for d in text)
+        return fn(text)
+
+    def clone(self, text: DataStruct) -> DataStruct:
+        """A copy that shares no tensor with ``text`` (the port writes some
+        tensors in place)."""
+        return self._map(text, torch.clone)
+
+    def cpu(self, text: DataStruct) -> DataStruct:
+        return self._map(text, lambda t: t.to("cpu"))
+
+    def device_put(self, text: DataStruct) -> DataStruct:
+        """``text`` with every tensor on the engine's device."""
+        return self._map(text, lambda t: t.to(self.torch_device))
+
+    cuda = device_put
+
+    def move_to(self, text: DataStruct, direction="gpu2cpu") -> DataStruct:
+        """'gpu2cpu': to the CPU; 'cpu2gpu': to the engine's device."""
+        if direction == "gpu2cpu":
+            return self.cpu(text)
+        if direction == "cpu2gpu":
+            return self.device_put(text)
+        raise ValueError(f"unknown direction {direction!r}")
+
+    def device(self, text: DataStruct) -> str:
+        """'cpu' or 'cuda': where the first tensor of ``text`` lies."""
+        x = text
+        while not isinstance(x, torch.Tensor):
+            x = x.data if isinstance(x, DataStruct) else x[0]
+        return x.device.type
+
+    def save(self, text: DataStruct, filename=None):
+        """Pickle a CPU copy of ``text``; returns the file name."""
+        if filename is None:
+            filename = (datetime.datetime.now().strftime("%Y%m%d%H%M%S%f")
+                        + ".pkl")
+        with Path(filename).open("wb") as f:
+            pickle.dump(self.cpu(text), f)
+        return filename
+
+    def load(self, filename, move_to_device=True):
+        """A saved DataStruct of an engine of the same parameters (else
+        ``HashMismatchError``), on the engine's device or on the CPU."""
+        with Path(filename).open("rb") as f:
+            text = pickle.load(f)
+        if text.hash and text.hash != self.hash:
+            raise errors.HashMismatchError()
+        return self.device_put(text) if move_to_device else text
+
+    def print_data_structure(self, text, level=0):
+        indent = "  " * level
+        if isinstance(text, DataStruct):
+            print(f"{indent}{text.origin} (level={text.level})")
+            data = text.data
+            if (isinstance(data, (list, tuple)) and data
+                    and isinstance(data[0], DataStruct)):
+                for d in data:
+                    self.print_data_structure(d, level + 1)
+            else:
+                for d in (data if isinstance(data, (list, tuple)) else [data]):
+                    print(f"{indent}  tensor {tuple(d.shape)}")
+
+    def refresh(self, seed=None):
+        self.rng.refresh(seed)
+
+    def profile(self, log_dir: str):
+        """A context manager tracing the calls inside it with
+        ``torch.profiler`` (the host, and the card's kernels on a CUDA
+        engine); the trace is written to ``log_dir`` as it closes::
+
+            with engine.profile("fhe-trace"):
+                engine.mult(ct1, ct2, evk)
+        """
+        from torch.profiler import ProfilerActivity, profile, \
+            tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.torch_device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(str(log_dir)))
 
     # -- dispatchers -----------------------------------------------------------------
 

@@ -32,6 +32,13 @@ Six kernels (sources in ``liberate_tpu_torch/csrc``):
 ``mxu_pallas.dispatch``, ``dispatch_ksk_from_state`` (with and without
 ``moddown_piw``) and ``dispatch_ksk_accum`` do.
 
+The switch kernels also run ct-batched part segments, as
+``dispatch_ksk_from_state(parts=P)``: with ``parts`` given, the state holds
+B segments of P parts, b-major, part-fastest (segment part bp = b*P + p),
+each one ciphertext's switch under the same key, and the outputs gain a
+batch axis ([2, B, C, N]; the exported dropped rows [B, 2 n_sp, N]). The
+twins loop over the segments.
+
 A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
 kernel's arithmetic step for step on int64 tensors and forms the digit
@@ -83,8 +90,8 @@ def tile_o(d, ksum=False):
 def stage_geometry(d, O, K, J, B, C, ksum=False):
     """The launch geometry of one stage kernel at d digits (as
     csrc/mxu.cuh computes it): O output rows, K rows contracted, J
-    columns, B batch elements (with ``ksum`` the parts, walked inside the
-    block), C channels."""
+    columns, B batch elements (with ``ksum`` the segments, whose parts a
+    block walks), C channels."""
     to = tile_o(d, ksum)
     t_bytes, x_bytes = d * to * KZ, TILE_J * KZ * 8
     ring = min(MAX_RING, (SMEM_BUDGET - 1024 - X_SLOTS * x_bytes)
@@ -95,7 +102,7 @@ def stage_geometry(d, O, K, J, B, C, ksum=False):
         tile_o=to, tile_j=TILE_J, ring=ring, kz=KZ, x_slots=X_SLOTS,
         threads=THREADS, regs=(ENTRY_REGS, PRODUCER_REGS, CONSUMER_REGS),
         smem=1024 + X_SLOTS * (x_bytes + 16) + ring * (t_bytes + 16),
-        grid=((1 if ksum else B) * -(-J // TILE_J), -(-O // to), C),
+        grid=(B * -(-J // TILE_J), -(-O // to), C),
         window=kw, stages_per_part=len(stage_schedule(d, K)),
         # registers a consumer thread holds across the stages: the d
         # accumulator sets, the digit fragments of a window, and with
@@ -130,14 +137,14 @@ def transform_geometry(plan, B, inverse=False):
             stage_geometry(plan.dA, J1, J1, O1, B, C)]
 
 
-def switch_geometry(plan, P):
-    """The four stage launches of one switch core of P parts: forward
-    stage 1 (B = P), stage 2 with the key sums, the two inverse stages of
-    both sums (B = 2)."""
+def switch_geometry(plan, P, B=1):
+    """The four stage launches of the switch core of B segments of P parts:
+    forward stage 1 (B*P), stage 2 with the key sums (B segments), the two
+    inverse stages of every sum (2B)."""
     S, R, C, d = plan.S, plan.R, plan.num_channels, plan.dA
-    return [stage_geometry(d, S, S, R, P, C),
-            stage_geometry(d, R, R, S, 1, C, ksum=True),
-            *transform_geometry(plan, 2, inverse=True)]
+    return [stage_geometry(d, S, S, R, B * P, C),
+            stage_geometry(d, R, R, S, B, C, ksum=True),
+            *transform_geometry(plan, 2 * B, inverse=True)]
 
 
 def reset_launches():
@@ -337,20 +344,42 @@ def mxu_ksk_accum_inv_plain(ext, k0, k1, plan, key_ch, part_off):
         post_reduce=True)
 
 
-def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off):
+def _segments(st, parts):
+    """The state's ct segments: [st] without ``parts``, else B of them."""
+    if parts is None:
+        return [st]
+    return list(st.reshape(-1, parts, *st.shape[1:]).unbind(0))
+
+
+def mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off,
+                         parts=None):
     """The switch of one width group without the mod-down (see
-    ``mxu_switch_inv``): [2, C, N] in [0, q). k0, k1: Shoup-form (value,
-    quotient) pairs, or Montgomery-form stacks."""
-    acc = _accum_plain(_extend_plain(st, terms, off0, plan), k0, k1, plan,
-                       key_ch, part_off)
-    return mxu_ntt_inv_plain(acc, plan, post_reduce=True)
+    ``mxu_switch_inv``): [2, C, N] in [0, q), or with ``parts`` [2, B, C,
+    N], one segment after the other. k0, k1: Shoup-form (value, quotient)
+    pairs, or Montgomery-form stacks."""
+    outs = [mxu_ntt_inv_plain(
+        _accum_plain(_extend_plain(s, terms, off0, plan), k0, k1, plan,
+                     key_ch, part_off), plan, post_reduce=True)
+        for s in _segments(st, parts)]
+    return outs[0] if parts is None else torch.stack(outs, dim=1)
 
 
 def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
-                     n_sp, special, srcs=None):
-    """The fused switch of one width group (see ``mxu_switch``)."""
-    r = mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch, part_off)
-    return _fold_plain(r, piw, plan, special, n_sp, srcs)
+                     n_sp, special, srcs=None, parts=None):
+    """The fused switch of one width group (see ``mxu_switch``), one segment
+    after the other with ``parts``."""
+    if parts is None:
+        r = mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch,
+                                 part_off)
+        return _fold_plain(r, piw, plan, special, n_sp, srcs)
+    outs = [mxu_switch_plain(s, terms, off0, piw, k0, k1, plan, key_ch,
+                             part_off, n_sp, special,
+                             None if special else srcs[b])
+            for b, s in enumerate(_segments(st, parts))]
+    if not special:
+        return torch.stack(outs, dim=1)
+    return (torch.stack([o[0] for o in outs], dim=1),
+            torch.stack([o[1] for o in outs]))
 
 
 # -- CUDA launches -----------------------------------------------------------------
@@ -361,10 +390,11 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "ltt_mxu_ntt": [_I, _I, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I]
     + [_P] * 11 + [_I, _P],
-    "ltt_mxu_switch": [_I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
+    "ltt_mxu_switch": [_I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
                        _L, _I, _I] + [_P] * 16 + [_P],
-    "ltt_mxu_switch_inv": [_I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+    "ltt_mxu_switch_inv": [_I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P,
+                           _P,
                            _P, _L, _L, _P, _P, _P, _P, _P, _L, _I, _I]
     + [_P] * 16 + [_P],
     "ltt_mxu_ksk_accum": [_I, _I, _P, _L, _L, _I, _P, _P, _L, _L, _P, _P, _P,
@@ -472,9 +502,14 @@ def mxu_ntt_inv(x, plan, exitx=False, post_reduce=False, out=None):
     return res.reshape(x.shape) if out is None else res
 
 
-def _check_switch(st, terms, off0, keys, plan, key_ch, part_off):
-    """Shape checks shared by the two switch wrappers."""
-    P, A, N = st.shape
+def _check_switch(st, terms, off0, keys, plan, key_ch, part_off, parts):
+    """Shape checks shared by the two switch wrappers: (B, P), the segments
+    and the parts of each."""
+    BP, A, N = st.shape
+    P = BP if parts is None else parts
+    if P < 1 or BP % P:
+        raise ValueError(f"switch: {BP} state parts are not segments of "
+                         f"{P}")
     C = plan.num_channels
     if terms.shape[:3] != (P, max(A - 1, 1), 3) or terms.shape[3] != C \
             or off0.shape != (C,) or N != plan.S * plan.R:
@@ -485,22 +520,43 @@ def _check_switch(st, terms, off0, keys, plan, key_ch, part_off):
                 or t.shape[2] != N:
             raise ValueError("switch: key stacks do not cover the parts and "
                              "channels")
+    return BP // P, P
 
 
-def _check_dense(st, terms, off0, out, ld):
+def _switch_out(out, B, C, N, parts, device):
+    """The output [2, C, N] (without ``parts``) or [2, B, C, N], allocated
+    when not given, as [2, B, C, N]."""
+    shape = (2, C, N) if parts is None else (2, B, C, N)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int64, device=device)
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"out must be {shape}")
+    return out, (out.unsqueeze(1) if parts is None else out)
+
+
+def _check_dense(st, terms, off0, out4, ld):
+    """out4: the output as [2, B, C, N]; its (half, segment) rows must be
+    evenly spaced, as the kernels write them."""
+    B = out4.shape[1]
     if not st.is_contiguous() or terms.stride() != (
             terms.shape[1] * 3 * ld, 3 * ld, ld, 1) \
-            or off0.stride() != (1,) or out.stride(1) != st.shape[-1]:
+            or off0.stride() != (1,) or out4.stride(2) != st.shape[-1] \
+            or (B > 1 and out4.stride(0) != B * out4.stride(1)):
         raise ValueError("switch: state, scalar tables and output must be "
                          "dense (channel slices of one layout)")
 
 
-def _switch_scratch(P, C, N, device):
-    """ext, inter1 [P, C, N]; acc, inter2 [2, C, N]: the switch's
+def _out_sb(out4):
+    """The stride between an output's (half, segment) rows."""
+    return out4.stride(0) if out4.shape[1] == 1 else out4.stride(1)
+
+
+def _switch_scratch(B, P, C, N, device):
+    """ext, inter1 [B*P, C, N]; acc, inter2 [2, B, C, N]: the switch's
     intermediates between its launches (kept referenced by the caller
     until the launch call returns)."""
-    ext = torch.empty((P, C, N), dtype=torch.int64, device=device)
-    acc = torch.empty((2, C, N), dtype=torch.int64, device=device)
+    ext = torch.empty((B * P, C, N), dtype=torch.int64, device=device)
+    acc = torch.empty((2, B, C, N), dtype=torch.int64, device=device)
     return ext, torch.empty_like(ext), acc, torch.empty_like(acc)
 
 
@@ -511,7 +567,7 @@ def _plan_ptrs(plan):
 
 
 def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
-               special, srcs=None, out=None):
+               special, srcs=None, out=None, parts=None):
     """The fused key switch of one width group with the mod-down folded in.
 
     st: [P, A, N] raw divided-difference state rows of the parts
@@ -524,91 +580,96 @@ def mxu_switch(st, terms, off0, piw, k0, k1, plan, key_ch, part_off, n_sp,
     this group holds the special primes as its last n_sp channels; it
     returns (out, srcs), the exported dropped rows srcs [2 n_sp, N].
     Otherwise ``srcs`` is consumed and out returned. out: [2, C, N]; the
-    ordinary rows fully mod-downed in [0, q), the special rows reduced."""
-    P, A, N = st.shape
+    ordinary rows fully mod-downed in [0, q), the special rows reduced.
+
+    ``parts``: st holds B ct segments of ``parts`` parts [B*P, A, N]; out
+    is then [2, B, C, N] and srcs [B, 2 n_sp, N]."""
+    A, N = st.shape[1:]
     C = plan.num_channels
     if special and C < n_sp:
         raise ValueError(f"the special group holds {C} channels, fewer "
                          f"than the {n_sp} special primes")
-    if not special and (srcs is None or srcs.shape != (2 * n_sp, N)
-                        or not srcs.is_contiguous()):
-        raise ValueError(f"mode 'ordinary' needs the special group's "
-                         f"[{2 * n_sp}, {N}] rows")
     if piw.shape != (n_sp, 2, C):
         raise ValueError("mxu_switch: piw does not match the plan")
     keys = (*k0, *k1)
-    _check_switch(st, terms, off0, keys, plan, key_ch, part_off)
-    if out is None:
-        out = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
+    B, P = _check_switch(st, terms, off0, keys, plan, key_ch, part_off,
+                         parts)
+    rows = (2 * n_sp, N) if parts is None else (B, 2 * n_sp, N)
+    if not special and (srcs is None or tuple(srcs.shape) != rows
+                        or not srcs.is_contiguous()):
+        raise ValueError(f"mode 'ordinary' needs the special group's "
+                         f"{list(rows)} rows")
+    out, out4 = _switch_out(out, B, C, N, parts, st.device)
     if _device_kind(st) == "cpu":
         res = mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch,
-                               part_off, n_sp, special, srcs)
+                               part_off, n_sp, special, srcs, parts)
         out.copy_(res[0] if special else res)
         return (out, res[1]) if special else out
     _check_plan(plan, st.device)
     ld = terms.stride(2)
-    _check_dense(st, terms, off0, out, ld)
+    _check_dense(st, terms, off0, out4, ld)
     if piw.stride() != (2 * ld, ld, 1):
         raise ValueError("mxu_switch: piw must be a channel slice of one "
                          "layout")
     _check_words(st, terms, off0, piw, out, *keys)
-    srcs_out = torch.empty((2 * n_sp, N), dtype=torch.int64,
+    srcs_out = torch.empty(rows, dtype=torch.int64,
                            device=st.device) if special else None
     kv = [t[part_off:, key_ch:] for t in keys]
-    scratch = _switch_scratch(P, C, N, st.device)
+    scratch = _switch_scratch(B, P, C, N, st.device)
     with torch.cuda.device(st.device):
         stream = torch.cuda.current_stream(st.device).cuda_stream
         rc = _fn("mxu_switch", "ltt_mxu_switch")(
-            plan.dA, int(special), n_sp, st.data_ptr(), P, A,
+            plan.dA, int(special), n_sp, st.data_ptr(), B, P, A,
             terms.data_ptr(), terms.shape[1], ld, off0.data_ptr(),
             piw.data_ptr(), *(t.data_ptr() for t in kv), kv[0].stride(0),
             kv[0].stride(1), None if special else srcs.data_ptr(),
             srcs_out.data_ptr() if special else None,
             *(t.data_ptr() for t in scratch),
-            out.data_ptr(), out.stride(0), C, _logN(plan), *_plan_ptrs(plan),
-            stream)
+            out.data_ptr(), _out_sb(out4), C, _logN(plan),
+            *_plan_ptrs(plan), stream)
     _raise_on(rc, "mxu_switch")
     launches["mxu_switch"] += 1
     return (out, srcs_out) if special else out
 
 
 def mxu_switch_inv(st, terms, off0, k0, k1, plan, key_ch, part_off,
-                   out=None):
+                   out=None, parts=None):
     """The key switch of one width group without the mod-down: out [2, C, N]
-    in [0, q), every channel reduced (the special rows included), for the
-    engine's separate mod-down. Arguments as ``mxu_switch``'s, except the
-    key: (value, quotient) pairs of Shoup-form stacks launch the Shoup-key
-    kernel (counter ``mxu_switch_inv``), single Montgomery-form stacks
-    [P_full, C0, N] the Montgomery-key kernel (``mxu_switch_inv_mont``)."""
-    P, A, N = st.shape
+    ([2, B, C, N] with ``parts``) in [0, q), every channel reduced (the
+    special rows included), for the engine's separate mod-down. Arguments
+    as ``mxu_switch``'s, except the key: (value, quotient) pairs of
+    Shoup-form stacks launch the Shoup-key kernel (counter
+    ``mxu_switch_inv``), single Montgomery-form stacks [P_full, C0, N] the
+    Montgomery-key kernel (``mxu_switch_inv_mont``)."""
+    A, N = st.shape[1:]
     C = plan.num_channels
     mont = not isinstance(k0, tuple)
     keys = (k0, k1) if mont else (*k0, *k1)
-    _check_switch(st, terms, off0, keys, plan, key_ch, part_off)
-    if out is None:
-        out = torch.empty((2, C, N), dtype=torch.int64, device=st.device)
+    B, P = _check_switch(st, terms, off0, keys, plan, key_ch, part_off,
+                         parts)
+    out, out4 = _switch_out(out, B, C, N, parts, st.device)
     if _device_kind(st) == "cpu":
         out.copy_(mxu_switch_inv_plain(st, terms, off0, k0, k1, plan, key_ch,
-                                       part_off))
+                                       part_off, parts))
         return out
     _check_plan(plan, st.device)
     ld = terms.stride(2)
-    _check_dense(st, terms, off0, out, ld)
+    _check_dense(st, terms, off0, out4, ld)
     _check_words(st, terms, off0, out, *keys)
     kv = [t[part_off:, key_ch:] for t in keys]
     k0w, k1w = (kv[0], kv[1]) if mont else (kv[0], kv[2])
     k0wp, k1wp = (None, None) if mont else (kv[1].data_ptr(),
                                             kv[3].data_ptr())
     name = "mxu_switch_inv_mont" if mont else "mxu_switch_inv"
-    scratch = _switch_scratch(P, C, N, st.device)
+    scratch = _switch_scratch(B, P, C, N, st.device)
     with torch.cuda.device(st.device):
         stream = torch.cuda.current_stream(st.device).cuda_stream
         rc = _fn("mxu_switch", "ltt_mxu_switch_inv")(
-            plan.dA, int(mont), st.data_ptr(), P, A, terms.data_ptr(),
+            plan.dA, int(mont), st.data_ptr(), B, P, A, terms.data_ptr(),
             terms.shape[1], ld, off0.data_ptr(), k0w.data_ptr(), k0wp,
             k1w.data_ptr(), k1wp, kv[0].stride(0), kv[0].stride(1),
             *(t.data_ptr() for t in scratch),
-            out.data_ptr(), out.stride(0), C, _logN(plan), *_plan_ptrs(plan),
+            out.data_ptr(), _out_sb(out4), C, _logN(plan), *_plan_ptrs(plan),
             stream)
     _raise_on(rc, name)
     launches[name] += 1
@@ -689,20 +750,27 @@ def dispatch(a, groups, inverse=False, plain=False, **kw):
     return out.reshape(a.shape)
 
 
+def _dispatch_out(st, C, parts):
+    """[2, C, N], or [2, B, C, N] for B ct segments of ``parts`` parts."""
+    lead = () if parts is None else (st.shape[0] // parts,)
+    return torch.empty((2, *lead, C, st.shape[-1]), dtype=torch.int64,
+                       device=st.device)
+
+
 def dispatch_switch(st, terms, off0, piw, k0, k1, groups, level, part_off,
-                    n_sp, plain=False):
+                    n_sp, plain=False, parts=None):
     """The fused switch of a level's with-special layout: the group holding
     the special primes (the last channels) runs first and exports its
     dropped rows; the other groups consume them. Returns [2, C_sp, N]: the
     ordinary rows fully mod-downed, the special rows raw (slice them off).
     ``level`` is the layout's first global channel, the key stacks'
-    channel of data channel 0. ``plain``: run the twins."""
+    channel of data channel 0. ``plain``: run the twins. ``parts``: st
+    holds B ct segments of that many parts; returns [2, B, C_sp, N]."""
     sp = max(groups, key=lambda g: g.hi)
     if sp.hi - sp.lo < n_sp:
         raise ValueError(f"the special width group [{sp.lo}, {sp.hi}) does "
                          f"not hold the {n_sp} special primes")
-    out = torch.empty((2, sp.hi, st.shape[-1]), dtype=torch.int64,
-                      device=st.device)
+    out = _dispatch_out(st, sp.hi, parts)
     srcs = None
     for g in [sp] + [g for g in groups if g is not sp]:
         special = g is sp
@@ -710,30 +778,31 @@ def dispatch_switch(st, terms, off0, piw, k0, k1, groups, level, part_off,
                 piw[..., g.lo:g.hi], k0, k1, g.plan, level + g.lo, part_off,
                 n_sp, special)
         if plain:
-            res = mxu_switch_plain(*args, srcs=srcs)
-            out[:, g.lo:g.hi] = res[0] if special else res
+            res = mxu_switch_plain(*args, srcs=srcs, parts=parts)
+            out[..., g.lo:g.hi, :] = res[0] if special else res
         else:
-            res = mxu_switch(*args, srcs=srcs, out=out[:, g.lo:g.hi])
+            res = mxu_switch(*args, srcs=srcs, out=out[..., g.lo:g.hi, :],
+                             parts=parts)
         if special:
             srcs = res[1]
     return out
 
 
 def dispatch_switch_inv(st, terms, off0, k0, k1, groups, level, part_off,
-                        plain=False):
+                        plain=False, parts=None):
     """The switch without the mod-down over a level's with-special layout,
-    one kernel per width group: [2, C_sp, N] in [0, q). ``level`` is the
-    layout's first global channel, the key stacks' channel of data
-    channel 0. ``plain``: run the twins."""
-    out = torch.empty((2, groups[-1].hi, st.shape[-1]), dtype=torch.int64,
-                      device=st.device)
+    one kernel per width group: [2, C_sp, N] in [0, q) ([2, B, C_sp, N]
+    with ``parts``, as ``dispatch_switch``). ``level`` is the layout's
+    first global channel, the key stacks' channel of data channel 0.
+    ``plain``: run the twins."""
+    out = _dispatch_out(st, groups[-1].hi, parts)
     for g in groups:
         args = (st, terms[..., g.lo:g.hi], off0[g.lo:g.hi], k0, k1, g.plan,
                 level + g.lo, part_off)
         if plain:
-            out[:, g.lo:g.hi] = mxu_switch_inv_plain(*args)
+            out[..., g.lo:g.hi, :] = mxu_switch_inv_plain(*args, parts=parts)
         else:
-            mxu_switch_inv(*args, out=out[:, g.lo:g.hi])
+            mxu_switch_inv(*args, out=out[..., g.lo:g.hi, :], parts=parts)
     return out
 
 

@@ -182,3 +182,63 @@ def test_galois_key_interop_round_trip(cpu_engine):
         return torch.equal(a, b)
 
     assert len(gk.data) == 7 and same(gk, back)
+
+
+def _collective(e, sks):
+    """Two parties' collective public key and evk."""
+    pk0 = e.multiparty_create_public_key(sks[0])
+    crs = e.multiparty_public_crs(pk0)
+    cpk = e.multiparty_create_collective_public_key(
+        [pk0, e.multiparty_create_public_key(sks[1], a=crs)])
+    shares = [e.create_key_switching_key(sks[0], sks[0])]
+    crs = e.generate_rotation_crs(shares[0])
+    shares.append(e.multiparty_create_key_switching_key(sks[1], sks[1],
+                                                        a=crs))
+    summed = e.multiparty_sum_evk_share(shares)
+    return cpk, e.multiparty_sum_evk_share_mult(
+        [e.multiparty_mult_evk_share_sum(summed, s) for s in sks])
+
+
+@pytest.mark.parametrize("entry", [
+    "multiparty_create_collective_public_key", "multiparty_collective_evk",
+    "multiparty_decrypt_head", "multiparty_decrypt_partial",
+    "multiparty_generate_rotation_key", "mult_batched", "mult_stacked",
+    "clone", "move_to", "device_put", "load"])
+def test_new_entry_points_stay_on_the_cpu(cpu_engine, entry, monkeypatch,
+                                          tmp_path):
+    """The multiparty, batched-mult and data entry points of a CPU engine
+    leave every tensor on the CPU without a card; ``load`` puts what it
+    reads on the engine's device."""
+    e, sk, ct = cpu_engine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sks = [sk, e.create_secret_key()]
+    if entry == "multiparty_create_collective_public_key":
+        out = _collective(e, sks)[0]
+    elif entry == "multiparty_collective_evk":
+        out = _collective(e, sks)[1]
+    elif entry == "multiparty_decrypt_head":
+        out = e.multiparty_decrypt_head(ct, sk)
+    elif entry == "multiparty_decrypt_partial":
+        out = e.multiparty_decrypt_partial(ct, sks[1])
+    elif entry == "multiparty_generate_rotation_key":
+        rotk0 = e.multiparty_create_rotation_key(sk, 1)
+        crs = e.generate_rotation_crs(rotk0)
+        out = e.multiparty_generate_rotation_key(
+            [rotk0, e.multiparty_create_rotation_key(sks[1], 1, a=crs)])
+    elif entry in ("mult_batched", "mult_stacked"):
+        evk = e.create_evk(sk)
+        if entry == "mult_batched":
+            out = e.mult_batched([ct, ct], [ct, ct], evk)
+        else:
+            s = e.stack_cts([ct, ct])
+            out = e.mult_stacked(s, s, evk)
+    elif entry == "clone":
+        out = e.clone(ct)
+    elif entry == "move_to":
+        out = e.move_to(ct, "cpu2gpu")
+    elif entry == "device_put":
+        out = e.device_put(ct)
+    else:
+        out = e.load(e.save(ct, tmp_path / "ct.pkl"))
+        assert e.device(out) == "cpu"
+    assert all(t.device.type == "cpu" for t in _leaves(out))
