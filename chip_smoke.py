@@ -99,7 +99,19 @@
    public key, evk and rotation key, mult and rotate_single under them,
    the threshold decryption < 1e-4, each step timed once, the engine's
    kernels and no other); ``data_phase`` on the card (save/load, clone,
-   move_to).
+   move_to). Then the engine sharded over 4 ranks at silver
+   (``sharded_engine_phase``; ranks as threads on the card, C0_sp = 18
+   padded to 20): keygen, encorypt, mult, level_up, rotate_single, three
+   parties' threshold decryption and decrode, every key and ciphertext
+   the single-device engine's words at the same seed, the mult launching
+   4 times its kernels and no other, its wall and busy time; and after
+   the gold paths the coefficient-sharded transforms at gold
+   (``coef_shard_phase``, S = 4 and 8 ranks on the card): the forward
+   with the entry and the inverse with the exit and reduce bit-equal to
+   the single-device #1 and #2, S launches each of the local #1 and of #2
+   in its no-normalise mode and no other kernel, each local kernel held
+   against its twin (its own kernel-table rows, ``ntt_fwd_coef_shard``
+   and ``ntt_inv_no_norm``), the sharded pair's wall.
 7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
    six special primes), one preset after the other, each preset's
    engines freed before the next: the engines' start (the context cold
@@ -116,8 +128,9 @@
    the butterfly and tensor-core paths ``ops_phase`` untimed; the segment
    rows #11 at bronze (B = 4) and #10 at platinum (B = 2); the batched
    mult untimed (bronze Bct = 4, platinum Bct = 2) with its peak memory.
-8. Prints the time of the phases this slice added and the script's time,
-   the card line, the kernels' JSON line and, last, the result line.
+8. Prints the timed phases (the two multi-rank ones separately) and the
+   script's time, the card line, the kernels' JSON line and, last, the
+   result line.
 
 ``--split-only PRESET`` runs only the split by launch at the preset; the
 script runs platinum's so, in a process of its own.
@@ -167,6 +180,9 @@ SEGMENTS = {
     "platinum": [("mxu_switch_inv", 2)]}
 SMALL = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
              is_secured=False, seed=SEED)
+# The multi-rank phases, ranks as threads on cuda:0.
+SHARDED = "silver sharded engine"
+COEF_SHARD = "gold coefficient-sharded transforms"
 
 
 def cuda_ms(fn, reps, warmup=5):
@@ -1427,6 +1443,340 @@ def multiparty_phase(eng, label, rows, parties=3):
     check_launches(f"{label} multiparty", path, own_kernels(eng), rows)
 
 
+def _barrier(mesh, axis):
+    """Every rank of the axis has reached this point (and its queued
+    work has run: the gloo sum stages its tensor through the host)."""
+    import torch
+
+    from liberate_tpu_torch.parallel import comm
+
+    comm.all_sum(torch.zeros(1, dtype=torch.int64, device=mesh.device),
+                 mesh, axis)
+
+
+def coef_shard_phase(eng, gen, rows, shards=(4, 8)):
+    """The coefficient-sharded transforms at gold, S ranks as threads on
+    cuda:0: the level-0 with-special channels of a [P, C, N] part stack
+    through ``ntt_coef_sharded(pre_enter=True)`` and
+    ``intt_coef_sharded(post_exit=True, post_reduce=True)``, bit-equal to
+    the single-device #1 and #2 on the same words, with the counters
+    zeroed just before: S launches of the local #1 and of #2 in its
+    no-normalise mode, no other kernel. Each local kernel held against its
+    twin at the local shape (logL 14 at S = 4, 13 at S = 8), timed beside
+    its bound; the whole sharded pair's wall (median of 5, rank 0's clock
+    between barriers) beside the single-device pair's. One card: a
+    functional check, the exchanges go through host buffers."""
+    import statistics
+
+    import torch
+
+    from liberate_tpu_torch.ntt import cuda_ntt, ops
+    from liberate_tpu_torch.parallel import make_mesh, run_ranks
+    from liberate_tpu_torch.parallel.coef_shard import (
+        intt_coef_sharded, make_coef_plan, ntt_coef_sharded)
+
+    pack = eng.pack(0, -2)
+    P, C, N = len(eng.ntt.parts(0)), pack.q.shape[0], eng.ctx.N
+    x = random_words(pack.q, (P, C, N), gen)
+    f_ref = ops.enter_ntt(x, pack)
+    i_ref = ops.intt_exit_reduce(f_ref, pack)
+    single = cuda_ms(lambda: ops.intt_exit_reduce(ops.enter_ntt(x, pack),
+                                                  pack), 20)
+    for S in shards:
+        L = N // S
+
+        def body():
+            plan = make_coef_plan(eng.ntt, make_mesh(S, axis_name="coef"))
+            mesh, i = plan.mesh, plan.index
+            xs = x[..., i * L:(i + 1) * L].contiguous()
+            torch.cuda.synchronize()
+            _barrier(mesh, "coef")
+            if i == 0:
+                reset_counters()
+            _barrier(mesh, "coef")
+            f = ntt_coef_sharded(xs, plan, pre_enter=True)
+            back = intt_coef_sharded(f_ref[..., i * L:(i + 1) * L]
+                                     .contiguous(), plan, post_exit=True,
+                                     post_reduce=True)
+            torch.cuda.synchronize()
+            _barrier(mesh, "coef")
+            path = counters()
+            walls = []
+            for _ in range(6):
+                _barrier(mesh, "coef")
+                t = time.perf_counter()
+                intt_coef_sharded(ntt_coef_sharded(xs, plan, pre_enter=True),
+                                  plan, post_exit=True, post_reduce=True)
+                torch.cuda.synchronize()
+                _barrier(mesh, "coef")
+                walls.append((time.perf_counter() - t) * 1e3)
+            return plan.local, xs, f, back, path, walls[1:]
+
+        out = run_ranks(S, body, device="cuda:0")
+        f = torch.cat([o[2] for o in out], dim=-1)
+        back = torch.cat([o[3] for o in out], dim=-1)
+        path, walls = out[0][4], out[0][5]
+        same = torch.equal(f, f_ref) and torch.equal(back, i_ref)
+        print(f"gold coef-sharded S={S} ([P={P}, C={C}, L={L}] a rank): "
+              f"forward with the entry and "
+              f"inverse with the exit and reduce "
+              f"{'bit-equal to' if same else 'DIFFER from'} the "
+              f"single-device #1 and #2; launches "
+              f"{ {k: v for k, v in path.items() if v} }; wall of the pair "
+              f"{statistics.median(walls):.3f} ms (median of 5, min "
+              f"{min(walls):.3f}, max {max(walls):.3f}; exchanges through "
+              f"host buffers) against {single[0]:.3f} ms single-device "
+              f"(CUDA events, median of 20)")
+        if not same:
+            raise AssertionError(f"gold coef-sharded S={S}: words differ "
+                                 f"from the single-device transforms")
+        want = dict.fromkeys(path, 0)
+        want.update(ntt_fwd=S, ntt_inv_no_norm=S)
+        if path != want:
+            raise AssertionError(f"gold coef-sharded S={S}: launches {path}, "
+                                 f"not {want}")
+        local, xs = out[1][0], out[1][1]
+        fs = out[1][2]
+        logL = local.logN
+        for name, fn, twin, b, line in (
+                ("ntt_fwd_coef_shard",
+                 lambda: cuda_ntt.ntt_fwd(xs, local),
+                 lambda: cuda_ntt.ntt_fwd_plain(xs, local),
+                 transform_bound(xs, logL, 0), 534),
+                ("ntt_inv_no_norm",
+                 lambda: cuda_ntt.ntt_inv(fs, local, no_norm=True),
+                 lambda: cuda_ntt.ntt_inv_plain(fs, local, no_norm=True),
+                 transform_bound(fs, logL, 0), 1112)):
+            check_case(name, f"gold coef shard S={S} B={P} C={C} logL={logL}",
+                       fn, twin, b, rows, "liberate_tpu_torch/csrc/ntt.cu",
+                       f"liberate_tpu/ntt/pallas_ntt.py:{line}")
+        for name, k in (("ntt_fwd_coef_shard", "ntt_fwd"),
+                        ("ntt_inv_no_norm", "ntt_inv_no_norm")):
+            if not rows[name]["launches"]:
+                rows[name]["launches"] = path[k]
+        del out, f, back
+
+    # On the card a shard shorter than the kernels' range (logN 8-17) is
+    # refused when the plan is made: there is no plain fallback.
+    from liberate_tpu_torch.fhe.context.ckks_context import CkksContext
+    from liberate_tpu_torch.ntt.ntt_context import NttContext
+
+    small = NttContext(CkksContext(logN=8, scale_bits=30, num_scales=3,
+                                   num_special_primes=2, is_secured=False),
+                       "cuda:0")
+
+    def refused():
+        try:
+            make_coef_plan(small, make_mesh(2, axis_name="coef"))
+        except ValueError:
+            return True
+        return False
+
+    if not all(run_ranks(2, refused, device="cuda:0")):
+        raise AssertionError("a coef plan of 2^7-word shards on the card was "
+                             "not refused")
+    print("coef-sharded plan of 2^7-word shards (logN 8, S=2) on the card: "
+          "refused, as the kernels take logL 8-17")
+
+
+def _words_equal(e, a, b):
+    """'raw' where two DataStructs (a tree) hold the same words, 'mod q'
+    where only their residues agree, else ''."""
+    import torch
+
+    from liberate_tpu_torch import DataStruct
+
+    raw = True
+    for x, y in zip(a.data, b.data):
+        if isinstance(x, DataStruct):
+            r = _words_equal(e, x, y)
+            if not r:
+                return ""
+            raw = raw and r == "raw"
+            continue
+        if torch.equal(x, y):
+            continue
+        raw = False
+        q = e.pack(a.level, -2 if a.include_special else -1).q[:, None]
+        if x.shape != y.shape or not torch.equal(x % q, y % q):
+            return ""
+    return "raw" if raw else "mod q"
+
+
+def _sharded_flow(e, ms):
+    """The sharded engine's path: keygen (a rotation key too), two
+    encryptions, mult, level_up, rotate_single, three parties' collective
+    public key and encryption under it. Returns the keys and ciphertexts
+    and the threshold decryption."""
+    sk = e.create_secret_key()
+    pk = e.create_public_key(sk)
+    evk = e.create_evk(sk)
+    rotk = e.create_rotation_key(sk, 1)
+    ct1, ct2 = e.encorypt(ms[0], pk), e.encorypt(ms[1], pk)
+    out = e.mult(ct1, ct2, evk)
+    sks = [sk, e.create_secret_key(), e.create_secret_key()]
+    pk0 = e.multiparty_create_public_key(sks[0])
+    crs = e.multiparty_public_crs(pk0)
+    cpk = e.multiparty_create_collective_public_key(
+        [pk0] + [e.multiparty_create_public_key(s, a=crs) for s in sks[1:]])
+    ctc = e.encorypt(ms[0], cpk)
+    words = dict(sk=sk, pk=pk, evk=evk, rotk=rotk, ct1=ct1, ct2=ct2, out=out,
+                 level_up=e.level_up(ct1, 2),
+                 rotate_single=e.rotate_single(ct1, rotk), cpk=cpk,
+                 ct_collective=ctc)
+    return words, _threshold_decrypt(e, ctc, sks)
+
+
+def sharded_engine_phase(eng, rows, ranks=4):
+    """The RNS-channel-sharded engine at silver on ``ranks`` ranks as
+    threads on cuda:0 (C0_sp = 18 does not divide by 4: the padded layout):
+    keygen, encorypt, mult with relin and rescale, level_up,
+    rotate_single, three parties' threshold decryption and decrode; every
+    key and ciphertext gathered from the ranks equal to the single-device
+    engine's at the same seed (``eng``, reseeded), mod q (raw where it
+    is); the mult, with the counters zeroed just before, launches R times
+    the single-device mult's kernels and no other; its wall (median of 5,
+    rank 0's clock between barriers) and busy time (torch.profiler over
+    the ranks' kernels), the decode errors and the phase's peak memory.
+    One card: a functional check, no speed claim."""
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import liberate_tpu_torch
+    from liberate_tpu_torch.parallel import make_mesh, run_ranks
+
+    params = {k: v for k, v in liberate_tpu_torch.params["silver"].items()
+              if k != "mesh_shape"}
+    rng = np.random.default_rng(SEED + 4)
+    ms = [rng.uniform(-1, 1, eng.num_slots) + 1j * rng.uniform(
+        -1, 1, eng.num_slots) for _ in range(2)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.refresh(SEED)
+    t = time.perf_counter()
+    want, dec_t_want = _sharded_flow(eng, ms)
+    ct1, ct2, evk = want["ct1"], want["ct2"], want["evk"]
+    reset_counters()
+    eng.mult(ct1, ct2, evk)
+    torch.cuda.synchronize()
+    one = counters()
+    t_single = time.perf_counter() - t
+
+    def body():
+        e = liberate_tpu_torch.CkksEngine(mesh=make_mesh(ranks), seed=SEED,
+                                          **params)
+        mesh, r = e.mesh, e.mesh.axis_index("rns")
+        t = time.perf_counter()
+        words, dec_t = _sharded_flow(e, ms)
+        dec = e.decrode(words["out"], words["sk"])
+        torch.cuda.synchronize()
+        t_flow = time.perf_counter() - t
+        full = {k: e.gather(v) for k, v in words.items()}
+        a, b, ek = words["ct1"], words["ct2"], words["evk"]
+        _barrier(mesh, "rns")
+        if r == 0:
+            reset_counters()
+        _barrier(mesh, "rns")
+        e.mult(a, b, ek)
+        torch.cuda.synchronize()
+        _barrier(mesh, "rns")
+        path = counters()
+        walls = []
+        for _ in range(6):
+            _barrier(mesh, "rns")
+            t = time.perf_counter()
+            e.mult(a, b, ek)
+            torch.cuda.synchronize()
+            _barrier(mesh, "rns")
+            walls.append((time.perf_counter() - t) * 1e3)
+        # The profiler runs in the main thread (it must start and stop in
+        # the thread that made it): rank 0 hands it the window.
+        _barrier(mesh, "rns")
+        if r == 0:
+            window[0].set()
+            window[1].wait()
+        _barrier(mesh, "rns")
+        for _ in range(3):
+            e.mult(a, b, ek)
+        torch.cuda.synchronize()
+        _barrier(mesh, "rns")
+        if r == 0:
+            window[2].set()
+        return (full if r == 0 else None, dec, dec_t, t_flow, path,
+                walls[1:])
+
+    window = [threading.Event() for _ in range(3)]   # ready, go, done
+    out = []
+
+    def run():
+        try:
+            out.extend(run_ranks(ranks, body, device="cuda:0"))
+        except BaseException as e:      # noqa: BLE001 - raised below
+            out.append(e)
+
+    ranks_run = threading.Thread(target=run)
+    ranks_run.start()
+    while not window[0].wait(1) and ranks_run.is_alive():
+        pass
+    busy = launched = copies = None
+    if window[0].is_set():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            window[1].set()
+            while not window[2].wait(1) and ranks_run.is_alive():
+                pass
+        kern = [k for k in prof.key_averages()
+                if k.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(k.self_device_time_total for k in kern) / 1e3 / 3
+        copies = sum(k.self_device_time_total for k in kern
+                     if k.key.startswith("Memcpy")) / 1e3 / 3
+        launched = sum(k.count for k in kern) // 3
+    ranks_run.join()
+    if len(out) != ranks:
+        raise out[0]
+    full, dec, dec_t, t_flow, path, walls = out[0]
+    peak = torch.cuda.max_memory_allocated()
+    same = {k: _words_equal(eng, full[k], want[k]) for k in want}
+    err = abs(eng.absmax_error(dec, ms[0] * ms[1]))
+    err_t = abs(eng.absmax_error(dec_t[:eng.num_slots], ms[0]))
+    agree = all(np.array_equal(o[1], dec) and np.array_equal(o[2], dec_t)
+                for o in out)
+    print(f"silver sharded engine, {ranks} ranks on cuda:0 (C0_sp "
+          f"{eng.ntt.total_channels} padded to "
+          f"{-(-eng.ntt.total_channels // ranks) * ranks}): words of the "
+          f"single-device engine: "
+          + ", ".join(f"{k} {v or 'DIFFER'}" for k, v in same.items())
+          + f"; |err| mult {err:.3e}, threshold decryption {err_t:.3e}, "
+          f"{'the same' if agree else 'DIFFERENT'} messages on every rank; "
+          f"the path {t_flow:.2f} s on rank 0 (single-device "
+          f"{t_single:.2f} s with one more mult)")
+    print(f"  silver sharded mult: launches "
+          f"{ {k: v for k, v in path.items() if v} } (single-device "
+          f"{ {k: v for k, v in one.items() if v} }); wall "
+          f"{statistics.median(walls):.3f} ms (median of 5, min "
+          f"{min(walls):.3f}, max {max(walls):.3f}), device busy "
+          f"{busy:.3f} ms in {launched} launches (all ranks; copies to and "
+          f"from host buffers {copies:.3f} ms of it); peak "
+          f"device memory {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held "
+          f"before)")
+    bad = [k for k, v in same.items() if not v]
+    if bad:
+        raise AssertionError(f"silver sharded engine: {bad} differ from the "
+                             f"single-device engine")
+    if not (err < 1e-4 and err_t < 1e-4 and agree):
+        raise AssertionError(f"silver sharded engine: errors {err}, {err_t} "
+                             f"or ranks disagree ({agree})")
+    if path != {k: ranks * v for k, v in one.items()}:
+        raise AssertionError(f"silver sharded mult launched {path}, not "
+                             f"{ranks} x {one}")
+    check_launches("silver sharded engine", path, own_kernels(eng), rows)
+    del out, full, want
+
+
 def data_phase(eng, run):
     """save/load, clone and move_to on the card: the loaded ciphertext on
     the card (and on the CPU without the move) with the saved words; an
@@ -2039,6 +2389,9 @@ def main():
              [("split", eng, split), ("unsplit", eng_unsplit, unsplit)])
     standalone_switch_path(eng_unsplit, unsplit["keys"],
                            "silver standalone switch", rows)
+    t = time.perf_counter()
+    sharded_engine_phase(eng, rows)
+    new_phases[SHARDED] = time.perf_counter() - t
     del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, split, unsplit
     del split_ops, mxu, mxu_ops
     del engines["silver"]
@@ -2051,6 +2404,9 @@ def main():
                   timed=(1, 2, 4))
     multiparty_phase(eng_mxu, "gold MXU", rows)
     new_phases["gold MXU batched and multiparty"] = time.perf_counter() - t
+    t = time.perf_counter()
+    coef_shard_phase(eng, gen, rows)
+    new_phases[COEF_SHARD] = time.perf_counter() - t
     del eng, eng_mxu, e, run
     torch.cuda.empty_cache()
 
@@ -2059,9 +2415,11 @@ def main():
         preset_phase(preset, dev, gen, rows, scratch, new_phases)
     del scratch
 
-    print("the phases this slice added: " + ", ".join(
+    print("timed phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in new_phases.items())
-        + f"; {sum(new_phases.values()):.1f} s in all")
+        + f"; {sum(new_phases.values()):.1f} s in all; the phases this "
+        f"slice added ({SHARDED}, {COEF_SHARD}): "
+        f"{new_phases[SHARDED] + new_phases[COEF_SHARD]:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -6,6 +6,8 @@ the key-switch multiply-accumulate are hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` at first use), and everything between them
 is plain PyTorch. Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"``, where the kernels' plain twins run instead.
+``parallel`` runs an engine as ranks that shard the RNS channel axis, and
+the transforms sharded over the coefficient axis.
 """
 
 from .version import VERSION

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -24,6 +25,9 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs = {}
+# Ranks that run as threads (liberate_tpu_torch.parallel) may reach a kernel
+# together: one of them builds and loads it.
+_lock = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -82,7 +86,10 @@ def build(names=None):
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, built on first use."""
-    if name not in _libs:
-        path = build([name])[name]
-        _libs[name] = ctypes.CDLL(str(path))
-    return _libs[name]
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = _libs[name]
+    return lib

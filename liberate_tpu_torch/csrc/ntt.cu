@@ -2,11 +2,12 @@
 //
 // Replaces: liberate_tpu/ntt/pallas_ntt.py `_ntt_kernel` (:534) and
 // `_intt_kernel` (:577) with Shoup-form twiddles (the Pallas plan's default,
-// use_shoup_twiddles). Same butterfly network, same lazy [0, 2q)
-// representatives: Cooley-Tukey forward with natural-order input and
-// bit-reversed output, Gentleman-Sande inverse, twiddle of stage s and
-// block b at bank entry 2^s + b. Only the order in which independent
-// butterflies run differs from the twins (ntt/cuda_ntt.py).
+// use_shoup_twiddles), the inverse's no_norm mode (:1112) among them.
+// Same butterfly network, same lazy [0, 2q) representatives: Cooley-Tukey
+// forward with natural-order input and bit-reversed output, Gentleman-Sande
+// inverse, twiddle of stage s and block b at bank entry 2^s + b. Only the
+// order in which independent butterflies run differs from the twins
+// (ntt/cuda_ntt.py).
 //
 // What bounds it on the H100: the 64-bit integer arithmetic on the CUDA
 // cores. Each butterfly is one Shoup product (sixteen 32-bit
@@ -99,7 +100,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 }
 
 // x: [B, C, N] with element strides (sb, sc, 1), 16-byte aligned rows;
-// y: contiguous [B, C, N]. nw, nwp: the final Shoup multiply.
+// y: contiguous [B, C, N]. nw, nwp: the final Shoup multiply, or null for
+// none (the no-normalise mode: lazy [0, 2q) words of the last stage).
 template <int LOGK, int FOLD>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ntt_inv_cluster(const u64* __restrict__ x, long long sb, long long sc,
@@ -147,7 +149,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // the normalisation and the reduce; coalesced stores.
   const int cols = (t >> LOGK) / blockDim.x;
   const int j0 = rank * (t >> LOGK) + threadIdx.x;
-  const u64 a = nw[c], ap = nwp[c];
+  const bool norm = nw != nullptr;
+  const u64 a = norm ? nw[c] : 0, ap = norm ? nwp[c] : 0;
   constexpr int kBatch = 4 * kMaxColumn / W;
 #pragma unroll 1
   for (int h = 0; h < cols; h += kBatch) {
@@ -166,7 +169,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         network<LOGK + FOLD, false>(v[it], 0, 0, wc, wpc, q, nq);
 #pragma unroll
       for (int i = 0; i < W; ++i) {
-        u64 o = shoup(v[it][i], a, ap, nq);
+        u64 o = norm ? shoup(v[it][i], a, ap, nq) : v[it][i];
         if (post_reduce) o = cond_sub(o, q);
         dst[j0 + (h + it) * blockDim.x + (long long)i * t] = o;
       }
@@ -236,8 +239,10 @@ extern "C" int ltt_ntt_fwd(const void* x, long long sb, long long sc, void* y,
 }
 
 // nw, nwp: [C] Shoup constant of the final normalisation (N^-1, or
-// N^-1 R^-1 for the fused Montgomery exit). post_reduce: [0, 2q) -> [0, q).
-// x must be 16-byte aligned with even strides.
+// N^-1 R^-1 for the fused Montgomery exit), or null to skip it (the
+// coefficient-sharded inverse normalises after its cross-shard stages).
+// post_reduce: [0, 2q) -> [0, q). x must be 16-byte aligned with even
+// strides.
 extern "C" int ltt_ntt_inv(const void* x, long long sb, long long sc, void* y,
                            int B, int C, int logN, const void* w,
                            const void* wp, const void* q, const void* nw,

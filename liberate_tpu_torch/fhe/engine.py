@@ -30,6 +30,7 @@ the plain-domain mod-down follows as torch ops (``switch_route``).
 
 import datetime
 import math
+import os
 import pickle
 from collections import OrderedDict
 from pathlib import Path
@@ -41,6 +42,7 @@ from ..csprng import Csprng
 from ..device import resolve_device
 from ..ntt import cuda_mxu, cuda_ntt, ops, u64
 from ..ntt.ntt_context import NttContext
+from ..parallel import comm
 from ..version import VERSION
 from .context.ckks_context import CkksContext
 from .data_struct import DataStruct
@@ -68,12 +70,11 @@ def _pk_core(e, a, sk, pack):
     return ops.mont_sub(e_t, ops.mont_mult(a, sk, pack), pack), a
 
 
-def _encrypt_core(pt, dc, e0, e1, v, pk0, pk1, level, pack):
-    """ct = (v*pk0 + pt + e0, v*pk1 + e1). ``dc`` is the bias-guard DC
-    coefficient's RNS remainder [C] (zeros when the guard is off)."""
-    W = pack.q.shape[0]
-    pk = torch.stack([ops.fit_channels(pk0[level:], W),
-                      ops.fit_channels(pk1[level:], W)])
+def _encrypt_core(pt, dc, e0, e1, v, pk0, pk1, pack):
+    """ct = (v*pk0 + pt + e0, v*pk1 + e1), pk0/pk1 in the ciphertext's
+    layout. ``dc`` is the bias-guard DC coefficient's RNS remainder [C]
+    (zeros when the guard is off)."""
+    pk = torch.stack([pk0, pk1])
     e0_t = ops.tile_unsigned(e0, pack)
     e1_t = ops.tile_unsigned(e1, pack)
     pt_t = ops.tile_unsigned(pt, pack)
@@ -91,30 +92,27 @@ def _encrypt_core(pt, dc, e0, e1, v, pk0, pk1, level, pack):
     return ct0, ct1
 
 
-def _decrypt_double_pt(ct0, ct1, sk, level, pack):
-    """pt = ct0 + ct1*sk."""
-    sk = ops.fit_channels(sk[level:], pack.q.shape[0])
+def _decrypt_double_pt(ct0, ct1, sk, pack):
+    """pt = ct0 + ct1*sk (sk in the ciphertext's layout)."""
     a_n = ops.enter_ntt(ct1, pack)
     sa = ops.intt_exit(ops.mont_mult(a_n, sk, pack), pack)
     return ops.reduce_2q(ops.mont_add(ct0, sa, pack), pack)
 
 
-def _mp_decrypt_partial(ct1, sk, level, pack):
+def _mp_decrypt_partial(ct1, sk, pack):
     """a*sk of one party: one B=1 enter+transform, the product, one B=1
     inverse with the Montgomery exit and no reduce (lazy [0, 2q))."""
-    sk = ops.fit_channels(sk[level:], pack.q.shape[0])
     a_n = ops.enter_ntt(ct1, pack)
     return ops.intt_exit(ops.mont_mult(a_n, sk, pack), pack)
 
 
-def _mp_decrypt_head(ct0, ct1, sk, level, pack):
+def _mp_decrypt_head(ct0, ct1, sk, pack):
     """ct0 + a*sk of the first party, not reduced."""
-    return ops.mont_add(ct0, _mp_decrypt_partial(ct1, sk, level, pack), pack)
+    return ops.mont_add(ct0, _mp_decrypt_partial(ct1, sk, pack), pack)
 
 
-def _decrypt_triplet_pt(d0, d1, d2, sk, level, pack):
+def _decrypt_triplet_pt(d0, d1, d2, sk, pack):
     """pt = d0 + d1*sk + d2*sk^2 from an NTT+Montgomery-domain triplet."""
-    sk = ops.fit_channels(sk[level:], pack.q.shape[0])
     d0_p = ops.intt_exit_reduce(d0, pack)
     d1_s = ops.intt_exit(ops.mont_mult(d1, sk, pack), pack)
     s2 = ops.mont_mult(sk, sk, pack)
@@ -229,10 +227,9 @@ def _neg_core(d, pack):
     return ops.reduce_2q(ops.neg(ops.reduce_2q(d, pack), pack), pack)
 
 
-def _scalar_mult_core(d, mont, pack, drop=0):
+def _scalar_mult_core(d, mont, pack):
     """Multiply d [..., C, N] by the per-channel Montgomery-form scalar
-    mont [C], after dropping its first ``drop`` channels (level_up)."""
-    d = ops.fit_channels(d[..., drop:, :], pack.q.shape[0])
+    mont [C]."""
     return ops.reduce_2q(ops.mont_enter_scalar(d, mont, pack), pack)
 
 
@@ -265,9 +262,10 @@ def _mc_add_core(pt, d0, pack):
 
 def _rotate_sk_core(sk, gather, neg, pack):
     """The coefficient-domain signed permutation of the secret key (the
-    Montgomery form commutes with it): the domain's inverse transform, the
-    permutation, negatives repaired to [0, 2q), the forward transform."""
-    c = ops.intt(ops.fit_channels(sk, pack.q.shape[0]), pack)
+    Montgomery form commutes with it) over the ordinary channels: the
+    domain's inverse transform, the permutation, negatives repaired to
+    [0, 2q), the forward transform."""
+    c = ops.intt(sk, pack)
     r = ops.canon_2q(ops.apply_signed_perm(c, gather, neg), pack)
     return ops.ntt(r, pack)
 
@@ -378,11 +376,23 @@ class CkksEngine:
     mean, cov, pow, sqrt, var and std; threshold (multiparty) keys and
     decryption; clone, device moves, save/load and a profiler trace.
 
-    ``device``: where every tensor lives (``torch_device``; ``device(x)``
-    answers where a DataStruct lies); ``None`` means ``cuda:0`` and raises
-    when no CUDA device is present. ``device="cpu"`` runs the
-    kernels' plain twins. ``use_mxu_ntt``: run every transform and the key
-    switch in the tensor-core kernels (natural-order NTT domain) instead of
+    ``devices`` (or its alias ``device``): where every tensor lives
+    (``torch_device``; ``device(x)`` answers where a DataStruct lies): a
+    device or its name, or a list of them as the reference takes (the first
+    is used); ``None`` means ``cuda:0`` and raises when no CUDA device is
+    present. ``devices="cpu"`` runs the kernels' plain twins.
+    ``mesh`` (``parallel.make_mesh(n)``, or ``mesh_shape=n`` inside a rank
+    of ``parallel.run_ranks`` or of a ``torch.distributed`` job): this
+    engine is one rank of n that shard the RNS channel axis. Every layout
+    is padded to a multiple of n channels and the engine holds its rows on
+    the mesh's device (``ntt.rows``); its keys and ciphertexts are those
+    rows of the single-device engine's words at the same seed, and the
+    steps that read other ranks' channels gather them (the rescale's
+    dropped channel, the key switch's input and its special rows,
+    ``level_up``, decryption). Butterfly domain only; a mesh with a
+    ``coef`` axis is not taken yet.
+    ``use_mxu_ntt``: run every transform and the key switch in the
+    tensor-core kernels (natural-order NTT domain) instead of
     the butterfly kernels; one engine uses one domain throughout, and its
     keys and ciphertexts are for engines of the same domain.
     ``use_shoup_ksk`` (tensor-core domain only, as the JAX package's
@@ -395,14 +405,39 @@ class CkksEngine:
     (``butterfly_switch_route``). All routes give the same words.
     """
 
-    def __init__(self, device=None, verbose: bool = False,
+    def __init__(self, devices=None, verbose: bool = False,
                  bias_guard: bool = True, norm: str = "forward",
-                 seed=None, mesh_shape=None, use_mxu_ntt: bool = False,
-                 use_shoup_ksk: bool = True, use_split_switch: bool = True,
-                 **ctx_params):
-        if mesh_shape not in (None, 1):
-            raise ValueError("the port runs on one device (mesh_shape=None)")
-        self.torch_device = resolve_device(device)
+                 seed=None, mesh_shape=None, mesh=None,
+                 use_mxu_ntt: bool = False, use_shoup_ksk: bool = True,
+                 use_split_switch: bool = True, device=None, **ctx_params):
+        if device is not None:
+            if devices is not None and devices != device:
+                raise TypeError("devices and its alias device differ")
+            devices = device
+        if mesh is None and mesh_shape not in (None, 1):
+            from ..parallel import make_mesh
+            mesh = make_mesh(math.prod(mesh_shape)
+                             if isinstance(mesh_shape, (tuple, list))
+                             else int(mesh_shape))
+        self.devices = devices
+        self.mesh = mesh
+        self.mesh_shape = mesh_shape
+        self.mesh_axis = "rns"
+        if mesh is not None:
+            if mesh.axis_size("coef") > 1:
+                raise NotImplementedError(
+                    "the engine on a mesh with a coef axis is not ported yet "
+                    "(parallel.coef_shard has the sharded transforms); use "
+                    "make_mesh(n)")
+            if use_mxu_ntt:
+                raise NotImplementedError("the engine on a mesh runs the "
+                                          "butterfly domain only")
+            self.channel_quantum = mesh.axis_size(self.mesh_axis)
+            self.torch_device = mesh.device
+        else:
+            self.channel_quantum = 1
+            self.torch_device = resolve_device(
+                devices[0] if isinstance(devices, (list, tuple)) else devices)
         self.bias_guard = bias_guard
         self.norm = norm
         self.version = VERSION
@@ -410,9 +445,17 @@ class CkksEngine:
         self.use_shoup_ksk = bool(use_shoup_ksk)
         self.use_split_switch = bool(use_split_switch)
 
-        self.ctx = CkksContext(verbose=verbose, **ctx_params)
-        self.ntt = NttContext(self.ctx, self.torch_device,
-                              use_mxu=self.use_mxu_ntt)
+        if mesh is None:
+            self.ctx = CkksContext(verbose=verbose, **ctx_params)
+        else:
+            # The ranks of one process build the host context once.
+            self.ctx = mesh.shared(
+                ("ctx", tuple(sorted(ctx_params.items()))),
+                lambda: CkksContext(verbose=verbose, **ctx_params))
+        self.ntt = NttContext(
+            self.ctx, self.torch_device, use_mxu=self.use_mxu_ntt,
+            shard=None if mesh is None else (
+                mesh.axis_index(self.mesh_axis), self.channel_quantum))
 
         # The deepest usable level.
         self.num_levels = self.ntt.num_levels - 1
@@ -420,6 +463,12 @@ class CkksEngine:
         self.num_ordinary = self.ntt.num_ordinary_primes
         self.num_special = self.ntt.num_special_primes
 
+        if mesh is not None and seed is None:
+            # Every rank draws the same words: rank 0's random key.
+            seed = comm.broadcast(
+                torch.from_numpy(np.frombuffer(os.urandom(32), np.uint32)
+                                 .astype(np.int64)), 0, mesh,
+                self.mesh_axis).numpy()
         self.rng = Csprng(self.ctx.N, self.num_ordinary,
                           max(self.num_special, 2), sigma=self.ctx.sigma,
                           seed=seed, device=self.torch_device)
@@ -434,8 +483,10 @@ class CkksEngine:
         self._create_rescale_scales()
         self.galois_deltas = [2 ** i for i in range(self.ctx.logN - 1)]
         self._ksk_stacked_cache = OrderedDict()
+        self._ksk_level_cache = OrderedDict()
         self._mxu_switch_cache = {}
         self._perm_device_cache = {}
+        self._mesh_cache = {}
 
         # (type, type) -> the name of the method: bound methods here would
         # tie the engine to itself in a reference cycle, and ``del engine``
@@ -558,6 +609,56 @@ class CkksEngine:
     def pack(self, level: int, mult_type: int = -1):
         return self.ntt.level_pack(level, mult_type)
 
+    # -- the channel layout on a mesh ----------------------------------------------
+    #
+    # A layout is (level, mult_type). Without a mesh these helpers are the
+    # single-device identities; on one, a layout's words are this rank's
+    # rows of it (``ntt.rows``), and a step that reads other ranks' channels
+    # gathers them.
+
+    def _cached(self, key, build):
+        if key not in self._mesh_cache:
+            self._mesh_cache[key] = build()
+        return self._mesh_cache[key]
+
+    def _index(self, offsets):
+        """int64 device index of the row offsets."""
+        return self._cached(("index", tuple(offsets)), lambda: torch.tensor(
+            offsets, dtype=torch.int64, device=self.torch_device))
+
+    def _offsets(self, level, mult_type, base):
+        return [r - base for r in self.ntt.rows(level, mult_type)]
+
+    def _local(self, full, level, mult_type):
+        """This rank's rows of a layout's full-width words [..., C, N]."""
+        if self.mesh is None:
+            return full
+        start = self.ntt.channel_range(level, mult_type)[0]
+        return full[..., self._index(self._offsets(level, mult_type, start)),
+                    :]
+
+    def _gather(self, x, level, mult_type):
+        """A layout's full-width words [..., C, N] from every rank's rows."""
+        if self.mesh is None:
+            return x
+        full = comm.all_gather(x, self.mesh, self.mesh_axis)
+        return full[..., :self.ntt.num_channels(level, mult_type), :]
+
+    def _fit(self, x, src, dst):
+        """Words of the layout src in the layout dst (whose channels start
+        no earlier): src's words of dst's channels, zeros where src has
+        none (``ops.fit_channels``)."""
+        if src == dst:
+            return x
+        full = self._gather(x, *src)
+        return self._local(
+            ops.fit_channels(full[..., dst[0] - src[0]:, :],
+                             self.ntt.num_channels(*dst)), *dst)
+
+    def _key_layout(self, key: DataStruct):
+        """The layout of a secret or public key's words."""
+        return (0, -2 if key.include_special else -1)
+
     # -- examples and errors -------------------------------------------------------
 
     def absmax_error(self, x, y):
@@ -579,6 +680,10 @@ class CkksEngine:
         base = 10 ** decimal_places
         a = np.random.randint(amin * base, amax * base, self.num_slots) / base
         b = np.random.randint(amin * base, amax * base, self.num_slots) / base
+        if self.mesh is not None:
+            # Every rank encrypts the same message: rank 0's.
+            a, b = comm.broadcast(torch.from_numpy(np.stack([a, b])), 0,
+                                  self.mesh, self.mesh_axis).numpy()
         return a + b * 1j
 
     # -- encode / decode ------------------------------------------------------------
@@ -629,9 +734,11 @@ class CkksEngine:
             a = crs
         if a is None:
             repeats = self.num_special if include_special else 0
-            a = self.rng.randint(amax=self.ntt.q_ints(0, mult_type),
-                                 repeats=repeats)
-        pk0, a_fit = _pk_core(e, a, sk.data, pack)
+            a = self._local(
+                self.rng.randint(amax=self.ntt.q_ints(0, mult_type),
+                                 repeats=repeats), 0, mult_type)
+        pk0, a_fit = _pk_core(e, a, self._fit(sk.data, self._key_layout(sk),
+                                              (0, mult_type)), pack)
         return DataStruct((pk0, a_fit), include_special, True, True,
                           types.origins["pk"], 0, self.hash)
 
@@ -646,17 +753,21 @@ class CkksEngine:
         if not sk_from.ntt_state or not sk_from.montgomery_state:
             raise errors.NotMatchDataStructState(origin=sk_from.origin)
 
-        pack_ord = self.pack(0, -1)
         Psk = ops.mont_enter_scalar(
-            ops.fit_channels(sk_from.data, pack_ord.q.shape[0]),
-            self.mont_PR, pack_ord)
+            self._fit(sk_from.data, self._key_layout(sk_from), (0, -1)),
+            self.mont_PR[self._index(self.ntt.rows(0, -1))], self.pack(0, -1))
+        # P*sk_from in the with-special layout, zero on the special rows.
+        Psk = self._fit(Psk, (0, -1), (0, -2))
+        pack_sp = self.pack(0, -2)
+        rows = self._index(self.ntt.rows(0, -2))
         ksk = []
         for part in self.ntt.parts(0):
             crs = a[part.part_id] if a is not None else None
             pk = self.create_public_key(sk_to, include_special=True, a=crs)
             lo, hi = part.prime_idx[0], part.prime_idx[-1] + 1
-            pk0 = pk.data[0].clone()
-            pk0[lo:hi] = ops.mont_add(pk0[lo:hi], Psk[lo:hi], part.pack)
+            block = ((rows >= lo) & (rows < hi))[:, None]
+            pk0 = torch.where(block, ops.mont_add(pk.data[0], Psk, pack_sp),
+                              pk.data[0])
             ksk.append(pk._replace(
                 data=(pk0, pk.data[1]),
                 origin=f"key switch key part index {part.part_id}"))
@@ -703,25 +814,38 @@ class CkksEngine:
         v = self.rng.randint(amax=2, shift=0, repeats=1)
         dc = torch.zeros_like(pack.q)
         ct0, ct1 = _encrypt_core(pt, dc, e0e1[0:1], e0e1[1:2], v,
-                                 pk.data[0], pk.data[1], level, pack)
+                                 *self._pk_at(pk, level), pack)
         return DataStruct((ct0, ct1), mult_type == -2, False, False,
                           types.origins["ct"], level, self.hash)
+
+    def _pk_at(self, pk: DataStruct, level):
+        """The public key's halves in the layout of a ciphertext at
+        ``level``."""
+        lay = self._key_layout(pk)
+        return (self._fit(d, lay, (level, lay[1])) for d in pk.data)
 
     def _decrypt_pt(self, ct: DataStruct, sk: DataStruct):
         """Raw decryption of a ciphertext (plain domain) or a triplet (NTT
         and Montgomery domain) to the plaintext RNS poly (no final
-        rescale)."""
+        rescale), full width on every rank of a mesh."""
         pack = self.pack(ct.level, -1)
         if ct.origin == types.origins["ct"]:
             if ct.ntt_state or ct.montgomery_state:
                 raise errors.NotMatchDataStructState(origin=ct.origin)
-            return _decrypt_double_pt(ct.data[0], ct.data[1], sk.data,
-                                      ct.level, pack)
-        if ct.origin == types.origins["ctt"]:
+            pt = _decrypt_double_pt(ct.data[0], ct.data[1],
+                                    self._sk_at(sk, ct.level), pack)
+        elif ct.origin == types.origins["ctt"]:
             if not ct.ntt_state or not ct.montgomery_state:
                 raise errors.NotMatchDataStructState(origin=ct.origin)
-            return _decrypt_triplet_pt(*ct.data, sk.data, ct.level, pack)
-        raise errors.NotMatchType(origin=ct.origin, to="ct or ctt")
+            pt = _decrypt_triplet_pt(*ct.data, self._sk_at(sk, ct.level),
+                                     pack)
+        else:
+            raise errors.NotMatchType(origin=ct.origin, to="ct or ctt")
+        return self._gather(pt, ct.level, -1)
+
+    def _sk_at(self, sk: DataStruct, level):
+        """The secret key in the ordinary layout of ``level``."""
+        return self._fit(sk.data, self._key_layout(sk), (level, -1))
 
     def _final_rescale_signed(self, pt, level, final_round=True):
         rh = (self.round_halves[level] if final_round
@@ -737,6 +861,13 @@ class CkksEngine:
             raise errors.NotMatchDataStructState(origin=sk.origin)
         pt = self._decrypt_pt(ct, sk)
         return self._final_rescale_signed(pt, ct.level, final_round)
+
+    def decrypt_double(self, ct: DataStruct, sk: DataStruct,
+                       final_round=True):
+        """``decrypt`` of a ciphertext (not a triplet)."""
+        if ct.origin != types.origins["ct"]:
+            raise errors.NotMatchType(origin=ct.origin, to=types.origins["ct"])
+        return self.decrypt(ct, sk, final_round=final_round)
 
     def decrypt_triplet(self, ct_mult: DataStruct, sk: DataStruct,
                         final_round=True):
@@ -755,7 +886,7 @@ class CkksEngine:
             m = self.padding(m)
         mult_type = -2 if pk.include_special else -1
         pack = self.pack(level, mult_type)
-        q_lvl = self.ntt.q_ints(level, mult_type)
+        q_lvl = self.ntt.q_rows(level, mult_type)
 
         pt = encdec.encode(m, rng=self.rng, scale=self.scale,
                            deviation=self.deviations[level], norm=self.norm,
@@ -776,7 +907,7 @@ class CkksEngine:
         e0e1 = self.rng.discrete_gaussian(repeats=2)
         v = self.rng.randint(amax=2, shift=0, repeats=1)
         ct0, ct1 = _encrypt_core(pt, dc, e0e1[0:1], e0e1[1:2], v,
-                                 pk.data[0], pk.data[1], level, pack)
+                                 *self._pk_at(pk, level), pack)
         return DataStruct((ct0, ct1), mult_type == -2, False, False,
                           types.origins["ct"], level, self.hash)
 
@@ -841,34 +972,124 @@ class CkksEngine:
             return self._switch_mxu(a, ksk, level)
         parts = self.ntt.parts(level)
         pack_sp = self.pack(level, -2)
+        # Every part's channels on every rank of a mesh.
+        a = self._gather(a, level, -1)
+        le_sh, bp_off = self._extension_tables(level)
         ext = torch.stack([
             _extend_shoup(_pre_extend(a, p.local_start, p.alpha, p),
-                          p.L_enter_sh, pack_sp, self.bp_sp[level], level)
-            for p in parts])                              # [P, C_sp, N]
-        k0, k1 = self._ksk_stacked(ksk)
+                          le_sh[i], pack_sp, bp_off, 0)
+            for i, p in enumerate(parts)])                # [P, C_sp, N]
+        k0, k1, at = self._ksk_at(ksk, level)
         part_off = parts[0].part_id
         route = butterfly_switch_route(self.ctx.logN, self.use_split_switch)
         if route == "fused":
-            d0, d1 = cuda_ntt.ntt_mulacc(ext, k0, k1, pack_sp.plan, level,
+            d0, d1 = cuda_ntt.ntt_mulacc(ext, k0, k1, pack_sp.plan, at,
                                          part_off)
         elif route == "split":
             d0, d1 = cuda_ntt.ksk_mulacc(ops.ntt(ext, pack_sp), k0, k1,
-                                         pack_sp.plan, level, part_off)
+                                         pack_sp.plan, at, part_off)
         else:
             P, C_sp = len(parts), pack_sp.q.shape[0]
             ext = ops.ntt(ext, pack_sp)
             t0 = ops.mont_mult(ext, k0[part_off:part_off + P,
-                                       level:level + C_sp], pack_sp)
+                                       at:at + C_sp], pack_sp)
             t1 = ops.mont_mult(ext, k1[part_off:part_off + P,
-                                       level:level + C_sp], pack_sp)
+                                       at:at + C_sp], pack_sp)
             d0, d1 = t0[0], t1[0]
             for p in range(1, P):
                 d0 = ops.mont_add(d0, t0[p], pack_sp)
                 d1 = ops.mont_add(d1, t1[p], pack_sp)
         d = ops.intt_reduce(torch.stack([d0, d1]), pack_sp)
-        return _mod_down_shoup(d, pack_sp, self.pack(level, -1),
-                               self.PiWs[level], self.bp_sp[level][0],
+        if self.mesh is None:
+            return _mod_down_shoup(d, pack_sp, self.pack(level, -1),
+                                   self.PiWs[level], self.bp_sp[level][0],
+                                   self.num_special)
+        # This rank's ordinary rows and the special rows, from every rank.
+        idx, pack_md, piws, bp = self._mod_down_tables(level)
+        return _mod_down_shoup(self._gather(d, level, -2)[..., idx, :],
+                               pack_md, self.pack(level, -1), piws, bp,
                                self.num_special)
+
+    def create_switcher(self, a, ksk: DataStruct, level: int,
+                        exit_ntt: bool = False):
+        """Key-switch the polynomial ``a`` [C_ord, N] of ``level`` (plain
+        [0, q); NTT and Montgomery domain with ``exit_ntt``): returns
+        (d0, d1) over the ordinary channels in plain [0, q)."""
+        d0, d1 = self._switch(a, ksk, level, exit_ntt=exit_ntt)
+        return d0, d1
+
+    # Tables of the switch and the rescale cut to a rank's rows: each pairs
+    # a layout's rows with the per-level tables, which are over the
+    # channels from ``level`` on (the extension's terms over all of them).
+
+    def _extension_tables(self, level):
+        """(each part's extension terms, the Barrett reciprocals and offset
+        corrections) of the with-special layout, cut to this rank's rows
+        (all of them on one device) once a level: they start at row 0."""
+        def build():
+            rows = self._index(self.ntt.rows(level, -2))
+            rel = self._index(self._offsets(level, -2, level))
+            return ([tuple(tuple(t[rows] for t in term)
+                           for term in p.L_enter_sh)
+                     for p in self.ntt.parts(level)],
+                    tuple(t[rel] for t in self.bp_sp[level]))
+
+        return self._cached(("extension", level), build)
+
+    def _mod_down_tables(self, level):
+        """The gathered rows the mod-down reads (this rank's ordinary rows,
+        then the special rows), their pack, its P_j^-1 steps and Barrett
+        reciprocals."""
+        def build():
+            C_ord = self.ntt.num_channels(level, -1)
+            C_sp = self.ntt.num_channels(level, -2)
+            offs = self._offsets(level, -1, level) + list(range(C_ord, C_sp))
+            idx = self._index(offs)
+            return (idx, self.ntt.make_pack_rows([level + o for o in offs],
+                                                 with_plan=False),
+                    tuple((w[idx], wp[idx]) for w, wp in self.PiWs[level]),
+                    self.bp_sp[level][0][idx])
+
+        return self._cached(("mod_down", level), build)
+
+    def _ksk_at(self, ksk: DataStruct, level):
+        """The key stacks and the row of the level's first channel in them:
+        the stacks and ``level`` on one device; on a mesh this rank's rows
+        of the level's with-special layout (a gather the first time a key
+        meets a level, then kept) and 0."""
+        k0, k1 = self._ksk_stacked(ksk)
+        if self.mesh is None or level == 0:
+            return k0, k1, level
+        key = (ksk, level)
+        if key not in self._ksk_level_cache:
+            self._ksk_level_cache[key] = tuple(
+                self._fit(k, (0, -2), (level, -2)).contiguous()
+                for k in (k0, k1))
+            if len(self._ksk_level_cache) > 16:
+                self._ksk_level_cache.popitem(last=False)
+        self._ksk_level_cache.move_to_end(key)
+        return (*self._ksk_level_cache[key], 0)
+
+    def _rescale_words(self, d, level, round_half):
+        """_rescale_core_shoup of words d [..., C, N] of the ordinary
+        layout of ``level`` into that of level + 1; on a mesh from the
+        gathered words (the dropped channel and this rank's rows)."""
+        if self.mesh is None:
+            return _rescale_core_shoup(d, self.rescale_sh[level],
+                                       self.bp_ord[level], round_half,
+                                       self.pack(level + 1, -1))
+
+        def build():
+            offs = self._offsets(level + 1, -1, level + 1)
+            rel = self._index(offs)
+            return (self._index([0] + [o + 1 for o in offs]),
+                    tuple(t[rel] for t in self.rescale_sh[level]),
+                    self.bp_ord[level][rel])
+
+        idx, rs_sh, bp = self._cached(("rescale", level), build)
+        return _rescale_core_shoup(self._gather(d, level, -1)[..., idx, :],
+                                   rs_sh, bp, round_half,
+                                   self.pack(level + 1, -1))
 
     def _mxu_switch_tables(self, level: int):
         """Per-level scalars of the fused switch: the extension terms
@@ -936,9 +1157,7 @@ class CkksEngine:
             raise errors.MaximumLevelError(level=level,
                                            level_max=self.num_levels)
         rh = self.round_halves[level] if exact_rounding else None
-        c = _rescale_core_shoup(torch.stack(ct.data), self.rescale_sh[level],
-                                self.bp_ord[level], rh,
-                                self.pack(level + 1, -1))
+        c = self._rescale_words(torch.stack(ct.data), level, rh)
         return DataStruct((c[0], c[1]), False, False, False,
                           types.origins["ct"], level + 1, self.hash)
 
@@ -1000,9 +1219,8 @@ class CkksEngine:
             raise errors.MaximumLevelError(level=level,
                                            level_max=self.num_levels)
         pack = self.pack(nxt, -1)
-        x0, x1, y0, y1 = _rescale_core_shoup(
-            torch.stack([*a.data, *b.data]), self.rescale_sh[level],
-            self.bp_ord[level], self.round_halves[level], pack)
+        x0, x1, y0, y1 = self._rescale_words(
+            torch.stack([*a.data, *b.data]), level, self.round_halves[level])
         ct_mult = DataStruct(_cc_mult_core(x0, x1, y0, y1, pack), False,
                              True, True, types.origins["ctt"], nxt, self.hash)
         return self.relinearize(ct_mult, evk) if relin else ct_mult
@@ -1065,10 +1283,11 @@ class CkksEngine:
         diff_deviation = (self.deviations[dst_level]
                           / np.sqrt(self.deviations[src_level]))
         deviated_delta = round(self.scale * diff_deviation)
-        d = _scalar_mult_core(torch.stack(new_ct.data),
-                              self._scalar_to_mont(deviated_delta, dst_level),
-                              self.pack(dst_level, -1),
-                              drop=dst_level - src_level)
+        d = _scalar_mult_core(
+            self._fit(torch.stack(new_ct.data), (src_level, -1),
+                      (dst_level, -1)),
+            self._scalar_to_mont(deviated_delta, dst_level),
+            self.pack(dst_level, -1))
         return DataStruct((d[0], d[1]), False, False, False,
                           types.origins["ct"], dst_level, self.hash)
 
@@ -1150,7 +1369,7 @@ class CkksEngine:
     def _scalar_to_mont(self, value: int, level: int):
         """value * R mod q_i over the level's ordinary channels."""
         return self._tensor([(value * self.ctx.R) % qi
-                             for qi in self.ntt.q_ints(level, -1)])
+                             for qi in self.ntt.q_rows(level, -1)])
 
     def _scalar_mult(self, ct: DataStruct, value: int) -> DataStruct:
         mont = self._scalar_to_mont(value, ct.level)
@@ -1176,7 +1395,7 @@ class CkksEngine:
             scaled *= self.ctx.N
         scaled *= self.int_scale
         vals = self._tensor([scaled % qi
-                             for qi in self.ntt.q_ints(ct.level, -1)])
+                             for qi in self.ntt.q_rows(ct.level, -1)])
         d0 = _add_dc_core(ct.data[0], vals, self.pack(ct.level, -1))
         return ct._replace(data=(d0,) + tuple(ct.data[1:]))
 
@@ -1238,7 +1457,8 @@ class CkksEngine:
 
     def _rotated_sk(self, sk: DataStruct, perm_key, perm_data) -> DataStruct:
         gather, neg = self._perm_on_device(perm_key, perm_data)
-        rotated = _rotate_sk_core(sk.data, gather, neg, self.pack(0, -1))
+        rotated = _rotate_sk_core(self._sk_at(sk, 0), gather, neg,
+                                  self.pack(0, -1))
         return DataStruct(rotated, False, True, True, types.origins["sk"], 0,
                           self.hash)
 
@@ -1422,12 +1642,13 @@ class CkksEngine:
 
     def multiparty_decrypt_head(self, ct: DataStruct, sk: DataStruct):
         """ct0 + a*sk_0 of the first party, lazy [0, 2q)."""
-        return _mp_decrypt_head(ct.data[0], ct.data[1], sk.data, ct.level,
+        return _mp_decrypt_head(ct.data[0], ct.data[1],
+                                self._sk_at(sk, ct.level),
                                 self.pack(ct.level, -1))
 
     def multiparty_decrypt_partial(self, ct: DataStruct, sk: DataStruct):
         """a*sk_i of every other party, lazy [0, 2q)."""
-        return _mp_decrypt_partial(ct.data[1], sk.data, ct.level,
+        return _mp_decrypt_partial(ct.data[1], self._sk_at(sk, ct.level),
                                    self.pack(ct.level, -1))
 
     def multiparty_decrypt_fusion(self, pcts: list, level=0,
@@ -1437,7 +1658,8 @@ class CkksEngine:
         pt = pcts[0]
         for pct in pcts[1:]:
             pt = ops.mont_add(pt, pct, pack)
-        scaled = self._final_rescale_signed(ops.reduce_2q(pt, pack), level)
+        scaled = self._final_rescale_signed(
+            self._gather(ops.reduce_2q(pt, pack), level, -1), level)
         return self.decode(scaled, level=level)
 
     def multiparty_create_key_switching_key(self, sk_src: DataStruct,
@@ -1528,6 +1750,23 @@ class CkksEngine:
         if isinstance(text, (tuple, list)):
             return type(text)(self._map(d, fn) for d in text)
         return fn(text)
+
+    def gather(self, text: DataStruct) -> DataStruct:
+        """The single-device engine's words of ``text``: on a mesh every
+        rank's rows gathered to full width (on every rank); else ``text``
+        itself. ``parallel.shard_datastruct`` is the inverse."""
+        if self.mesh is None:
+            return text
+        lay = (text.level, -2 if text.include_special else -1)
+
+        def full(d):
+            if isinstance(d, DataStruct):
+                return self.gather(d)
+            if isinstance(d, (tuple, list)):
+                return type(d)(full(x) for x in d)
+            return self._gather(d, *lay)
+
+        return text._replace(data=full(text.data))
 
     def clone(self, text: DataStruct) -> DataStruct:
         """A copy that shares no tensor with ``text`` (the port writes some

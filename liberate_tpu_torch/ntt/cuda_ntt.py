@@ -7,8 +7,9 @@ Four kernels (sources in ``liberate_tpu_torch/csrc``):
   Montgomery form first (a Shoup multiply by R mod q) and reducing to
   [0, q) last (replaces ``pallas_ntt._ntt_kernel``);
 - ``ntt_inv``: the inverse NTT with the N^-1 (or N^-1 R^-1, the fused
-  Montgomery exit) Shoup multiply and the optional reduce folded in
-  (replaces ``pallas_ntt._intt_kernel``);
+  Montgomery exit) Shoup multiply and the optional reduce folded in, or
+  with ``no_norm`` none of them (replaces ``pallas_ntt._intt_kernel`` and
+  its ``no_norm`` mode; counted as ``ntt_inv_no_norm``);
 - ``ksk_mulacc``: the key-switch products with both key halves, summed
   over the gadget parts (replaces ``pallas_ntt._ksk_mulacc_kernel``);
 - ``ntt_mulacc``: the forward NTT of every gadget part and ``ksk_mulacc``
@@ -35,7 +36,8 @@ import torch
 from .. import _build
 from . import u64
 
-launches = {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0, "ntt_mulacc": 0}
+launches = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_inv_no_norm": 0,
+            "ksk_mulacc": 0, "ntt_mulacc": 0}
 
 
 # The butterfly transforms' launch (csrc/ntt.cu): a cluster of K CTAs per
@@ -164,10 +166,17 @@ class NttPlan:
         """The plan of the channel range [start, stop) (views, no copies)."""
         def cut(t):
             return t[start:stop]
-        return NttPlan(self.logN, cut(self.q), cut(self.k), cut(self.w),
-                       cut(self.wp), cut(self.iw), cut(self.iwp),
-                       tuple(map(cut, self.enter)), tuple(map(cut, self.ninv)),
-                       tuple(map(cut, self.ninv_exit)))
+        return self._map(cut)
+
+    def select(self, idx):
+        """The plan of the channels idx (an int64 index tensor; copies)."""
+        return self._map(lambda t: t.index_select(0, idx))
+
+    def _map(self, fn):
+        return NttPlan(self.logN, fn(self.q), fn(self.k), fn(self.w),
+                       fn(self.wp), fn(self.iw), fn(self.iwp),
+                       tuple(map(fn, self.enter)), tuple(map(fn, self.ninv)),
+                       tuple(map(fn, self.ninv_exit)))
 
 
 def make_plan(logN, q_list, k_list, psi_plain, ipsi_plain, device):
@@ -246,9 +255,18 @@ def ntt_fwd_plain(x, plan, pre_enter=False, post_reduce=False):
     return a
 
 
-def ntt_inv_plain(x, plan, post_exit=False, post_reduce=False):
+def _check_no_norm(no_norm, post_exit, post_reduce):
+    if no_norm and (post_exit or post_reduce):
+        raise ValueError("no_norm skips the exit and the reduce with the "
+                         "normalisation")
+
+
+def ntt_inv_plain(x, plan, post_exit=False, post_reduce=False,
+                  no_norm=False):
     """Inverse NTT of x [B, C, N] (GS butterflies), then the Shoup multiply
-    by N^-1 (N^-1 R^-1 with post_exit), then optionally [0, 2q) -> [0, q)."""
+    by N^-1 (N^-1 R^-1 with post_exit), then optionally [0, 2q) -> [0, q).
+    ``no_norm``: the lazy [0, 2q) words of the last stage, with neither."""
+    _check_no_norm(no_norm, post_exit, post_reduce)
     B, C, N = x.shape
     q = plan.q[:, None, None]
     q2 = 2 * q
@@ -261,6 +279,8 @@ def ntt_inv_plain(x, plan, post_exit=False, post_reduce=False):
         W = u64.shoup_mul(O, plan.iw[:, m:2 * m, None],
                           plan.iwp[:, m:2 * m, None], q)
         a = torch.stack([_cond_sub(U + V, q2), W], dim=3).reshape(B, C, N)
+    if no_norm:
+        return a
     w, wp = plan.ninv_exit if post_exit else plan.ninv
     a = u64.shoup_mul(a, w[:, None], wp[:, None], plan.q[:, None])
     if post_reduce:
@@ -381,7 +401,8 @@ def _check_transform(name, xb, plan):
                          "batch and channel strides")
 
 
-def _transform(name, x, plan, w, wp, scal, post_reduce, twin):
+def _transform(name, x, plan, w, wp, scal, post_reduce, twin,
+               counter=None):
     xb = _batched(x, plan)
     if _device_kind(x) == "cpu":
         return twin(xb).reshape(x.shape)
@@ -397,7 +418,7 @@ def _transform(name, x, plan, w, wp, scal, post_reduce, twin):
             scal[0].data_ptr() if scal else None,
             scal[1].data_ptr() if scal else None, int(post_reduce), stream)
     _raise_on(rc, name)
-    launches[name] += 1
+    launches[counter or name] += 1
     return out.reshape(x.shape)
 
 
@@ -409,13 +430,16 @@ def ntt_fwd(x, plan, pre_enter=False, post_reduce=False):
         lambda xb: ntt_fwd_plain(xb, plan, pre_enter, post_reduce))
 
 
-def ntt_inv(x, plan, post_exit=False, post_reduce=False):
+def ntt_inv(x, plan, post_exit=False, post_reduce=False, no_norm=False):
     """Inverse NTT of x [..., C, N] with the N^-1 (N^-1 R^-1 when
-    post_exit) multiply and optional reduce."""
+    post_exit) multiply and optional reduce; with ``no_norm`` without the
+    multiply (and then without the exit and the reduce)."""
+    _check_no_norm(no_norm, post_exit, post_reduce)
+    scal = None if no_norm else plan.ninv_exit if post_exit else plan.ninv
     return _transform(
-        "ntt_inv", x, plan, plan.iw, plan.iwp,
-        plan.ninv_exit if post_exit else plan.ninv, post_reduce,
-        lambda xb: ntt_inv_plain(xb, plan, post_exit, post_reduce))
+        "ntt_inv", x, plan, plan.iw, plan.iwp, scal, post_reduce,
+        lambda xb: ntt_inv_plain(xb, plan, post_exit, post_reduce, no_norm),
+        "ntt_inv_no_norm" if no_norm else None)
 
 
 def _check_switch_core(name, x, k0, k1, plan, level, part_off):

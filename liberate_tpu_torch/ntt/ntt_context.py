@@ -14,6 +14,10 @@ channels).
 Channel layout: the global prime order is q = [scales..., base,
 specials...]. At level l the alive channels are the contiguous suffix
 q[l:]; mult_type -1 excludes the trailing special primes, -2 includes them.
+On a mesh (``shard``: this rank's index and the ``rns`` axis size) a
+layout's channel axis is padded to a multiple of the axis size by
+repeating its last channel, and a rank's packs hold its rows of it
+(``rows``; ``liberate_tpu_torch.parallel``).
 """
 
 from typing import NamedTuple, Optional
@@ -22,6 +26,7 @@ import torch
 
 from . import mxu_ntt, u64
 from .cuda_mxu import MxuGroup
+from ..parallel.sharding import shard_rows
 from .cuda_ntt import NttPlan, make_plan
 from .rns_partition import RnsPartition
 
@@ -68,10 +73,11 @@ class PartPlan(NamedTuple):
 
 
 class NttContext:
-    def __init__(self, ctx, device, use_mxu=False):
+    def __init__(self, ctx, device, use_mxu=False, shard=None):
         self.ctx = ctx
         self.device = torch.device(device)
         self.use_mxu = use_mxu
+        self.shard = shard
         self.num_ordinary_primes = ctx.num_scales + 1
         self.num_special_primes = ctx.num_special_primes
         self.num_levels = ctx.num_scales + 1
@@ -124,6 +130,19 @@ class NttContext:
         start, stop = self.channel_range(level, mult_type)
         return self.q_list[start:stop]
 
+    def rows(self, level: int, mult_type: int):
+        """The global channels this rank holds of a layout, in order: all of
+        them on one device; on a mesh its rows of the padded layout (the
+        padding repeats the last channel)."""
+        start, stop = self.channel_range(level, mult_type)
+        if self.shard is None:
+            return list(range(start, stop))
+        return [start + j for j in shard_rows(*self.shard, stop - start)]
+
+    def q_rows(self, level: int, mult_type: int):
+        """The moduli of ``rows``."""
+        return [self.q_list[r] for r in self.rows(level, mult_type)]
+
     # -- packs ----------------------------------------------------------------------
 
     def make_pack(self, start: int, stop: int, with_plan=True) -> LevelPack:
@@ -142,11 +161,25 @@ class NttContext:
         return LevelPack(*(t[start:stop] for t in m[:-2]), plan=plan,
                          mxu=mxu)
 
+    def make_pack_rows(self, rows, with_plan=True) -> LevelPack:
+        """The pack of the global channels ``rows``: views where they are
+        contiguous, else copies (butterfly domain only)."""
+        if rows == list(range(rows[0], rows[-1] + 1)):
+            return self.make_pack(rows[0], rows[-1] + 1, with_plan)
+        if self.use_mxu:
+            raise ValueError("the tensor-core domain takes contiguous "
+                             "channel ranges only")
+        sel = torch.tensor(rows, device=self.device)
+        m = self._master
+        return LevelPack(*(t.index_select(0, sel) for t in m[:-2]),
+                         plan=m.plan.select(sel) if with_plan else None)
+
     def level_pack(self, level: int = 0, mult_type: int = -1) -> LevelPack:
+        """The pack of a layout: this rank's rows of it on a mesh."""
         key = (level, mult_type)
         if key not in self._level_packs:
-            self._level_packs[key] = self.make_pack(
-                *self.channel_range(level, mult_type))
+            self._level_packs[key] = self.make_pack_rows(
+                self.rows(level, mult_type))
         return self._level_packs[key]
 
     # -- key-switching part plans -----------------------------------------------

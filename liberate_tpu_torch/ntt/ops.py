@@ -21,7 +21,7 @@ __all__ = [
     "mont_redc", "mont_add", "mont_sub", "neg", "reduce_2q", "canon_2q",
     "make_signed", "make_unsigned", "tile_unsigned", "apply_signed_perm",
     "fit_channels", "ntt", "intt", "enter_ntt", "intt_exit",
-    "intt_exit_reduce", "intt_reduce",
+    "intt_exit_reduce", "intt_reduce", "intt_no_norm",
 ]
 
 
@@ -171,6 +171,13 @@ def intt_exit_reduce(a, pack):
         return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=True,
                                  post_reduce=True)
     return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=True, post_reduce=True)
+
+
+def intt_no_norm(a, pack):
+    """Inverse NTT without the N^-1 normalisation (lazy [0, 2q) words; the
+    coefficient-sharded inverse normalises after its cross-shard stages).
+    Butterfly domain only."""
+    return cuda_ntt.ntt_inv(a, _plan(pack), no_norm=True)
 
 
 def intt_reduce(a, pack):

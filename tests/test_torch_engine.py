@@ -38,6 +38,7 @@ from liberate_tpu_torch import interop
 from liberate_tpu_torch.fhe import engine as port_engine
 from liberate_tpu_torch.ntt import cuda_ntt
 from liberate_tpu_torch.ntt.rns_partition import RnsPartition
+from liberate_tpu_torch.parallel import make_mesh, run_ranks
 
 PARAMS = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
               is_secured=False, seed=20260816)
@@ -91,6 +92,7 @@ def run(shared_eng, shared_keys):
     je = shared_eng
     te = liberate_tpu_torch.CkksEngine(device="cpu", **PARAMS)
     te.rng.steps[:] = je.rng.steps
+    steps0 = te.rng.steps.copy()
     keys_j = (je.create_secret_key(),)
     keys_j += (je.create_public_key(keys_j[0]), je.create_evk(keys_j[0]))
     keys_t = (te.create_secret_key(),)
@@ -102,18 +104,20 @@ def run(shared_eng, shared_keys):
         -1, 1, je.num_slots)
     ct_j = je.encorypt(m, keys_j[1])
     ct_t = te.encorypt(m, keys_t[1])
-    return dict(je=je, te=te, keys_j=keys_j, keys_t=keys_t, m=m,
+    return dict(je=je, te=te, steps0=steps0, keys_j=keys_j, keys_t=keys_t,
+                m=m,
                 ct_j=ct_j, ct_t=ct_t,
                 mult_j=je.mult(ct_j, ct_j, keys_j[2]),
                 mult_t=te.mult(ct_t, ct_t, keys_t[2]),
                 shared_keys=shared_keys)
 
 
-def _canonical_pairs(r, which):
-    """(jax words, port words, moduli) of each polynomial of a key."""
+def _canonical_pairs(r, which, keys_t=None):
+    """(jax words, port words, moduli) of each polynomial of a key: the
+    fixture's port keys, or ``keys_t`` (sk, pk, evk)."""
     q = np.array(r["je"].ctx.q, dtype=np.int64)
     idx = {"sk": 0, "pk": 1, "evk": 2}[which]
-    kj, kt = r["keys_j"][idx], r["keys_t"][idx]
+    kj, kt = r["keys_j"][idx], (keys_t or r["keys_t"])[idx]
     if which == "sk":
         return [(kj.data, kt.data)], q
     if which == "pk":
@@ -129,6 +133,38 @@ def test_keys_bit_identical_mod_q(run, which):
         jw, tw = _jax_words(j), t.numpy()
         qc = q[:jw.shape[0], None]
         assert np.array_equal(jw % qc, tw % qc)
+
+
+def test_sharded_engine_equals_jax(run):
+    """The RNS-channel-sharded engine on 4 ranks (gloo threads of this
+    process; the channel axes padded to a multiple of 4) from the fixture's
+    stream steps: its gathered keys are the JAX engine's words mod q, its
+    ciphertext and mult output the JAX words raw."""
+    def body():
+        e = liberate_tpu_torch.CkksEngine(mesh=make_mesh(4), device="cpu",
+                                          **PARAMS)
+        e.rng.steps[:] = run["steps0"]
+        sk = e.create_secret_key()
+        pk, evk = e.create_public_key(sk), e.create_evk(sk)
+        ct = e.encorypt(run["m"], pk)
+        out = e.mult(ct, ct, evk)
+        return [e.gather(x) for x in (sk, pk, evk, ct, out)]
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ranks = run_ranks(4, body, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    for *keys, ct, out in ranks:
+        for which in ("sk", "pk", "evk"):
+            pairs, q = _canonical_pairs(run, which, keys)
+            for j, t in pairs:
+                jw, tw = _jax_words(j), t.numpy()
+                qc = q[:jw.shape[0], None]
+                assert np.array_equal(jw % qc, tw % qc), which
+        _assert_words_equal(run["ct_j"], ct)
+        _assert_words_equal(run["mult_j"], out)
 
 
 def test_encorypt_bit_identical(run):
@@ -156,6 +192,40 @@ def test_encode_encrypt_decrypt_bit_identical(run):
     dec_j, dec_t = je.decrypt(ct_j, sk_j), te.decrypt(ct_t, sk_t)
     assert np.array_equal(_jax_words(dec_j), dec_t.numpy())
     assert abs(te.absmax_error(te.decode(dec_t), m)) < TOL
+
+
+def test_decrypt_double_equals_jax(run):
+    """decrypt_double: a ciphertext's decryption, the JAX engine's words;
+    anything else raises NotMatchType, as in the JAX engine."""
+    je, te = run["je"], run["te"]
+    (sk_j, _, _), (sk_t, _, _) = run["keys_j"], run["keys_t"]
+    assert np.array_equal(_jax_words(je.decrypt_double(run["ct_j"], sk_j)),
+                          te.decrypt_double(run["ct_t"], sk_t).numpy())
+    for e, sk, pk in ((je, sk_j, run["keys_j"][1]),
+                      (te, sk_t, run["keys_t"][1])):
+        with pytest.raises(liberate_tpu_torch.errors.NotMatchType
+                           if e is te else liberate_tpu.errors.NotMatchType):
+            e.decrypt_double(pk, sk)
+
+
+def test_devices_keyword():
+    """The first parameter is ``devices``, as in the JAX engine; ``device``
+    stays its alias, and a reference-style list names the device."""
+    import inspect
+
+    first = [list(inspect.signature(c.__init__).parameters)[1]
+             for c in (liberate_tpu.CkksEngine, liberate_tpu_torch.CkksEngine)]
+    assert first == ["devices", "devices"]
+    small = dict(logN=8, scale_bits=30, num_scales=2, num_special_primes=1,
+                 is_secured=False)
+    for kw in (dict(devices="cpu"), dict(device="cpu"),
+               dict(devices=["cpu"]), dict(devices="cpu", device="cpu")):
+        e = liberate_tpu_torch.CkksEngine(**kw, **small)
+        assert e.torch_device == torch.device("cpu")
+    assert e.devices == "cpu"
+    with pytest.raises(TypeError, match="alias"):
+        liberate_tpu_torch.CkksEngine(devices="cpu", device="cuda:0",
+                                      **small)
 
 
 def test_level_up_bit_identical(run):

@@ -18,6 +18,7 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import liberate_tpu_torch, liberate_tpu_torch.interop\n"
+        "import liberate_tpu_torch.parallel.coef_shard\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'liberate_tpu' or m.startswith('liberate_tpu.'))\n"
@@ -74,8 +75,21 @@ def _from_reference():
              origin="ct", level=0, hash="", version=""))
 
 
-@pytest.mark.parametrize("make", [_csprng, _from_reference],
-                         ids=["csprng", "from_reference"])
+def _run_ranks():
+    from liberate_tpu_torch.parallel import run_ranks
+    return run_ranks(2, lambda: None)
+
+
+def _make_mesh_in_ranks():
+    from liberate_tpu_torch.parallel import make_mesh, run_ranks
+    return run_ranks(2, lambda: make_mesh(devices=[None, None]),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("make", [_csprng, _from_reference, _run_ranks,
+                                  _make_mesh_in_ranks],
+                         ids=["csprng", "from_reference", "run_ranks",
+                              "make_mesh"])
 def test_other_entry_points_without_device_raise_when_no_cuda(monkeypatch,
                                                                make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

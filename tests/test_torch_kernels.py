@@ -17,6 +17,7 @@ from liberate_tpu.ntt.ntt_context import NttContext
 from liberate_tpu_torch.fhe.context.ckks_context import \
     CkksContext as TorchCkksContext
 from liberate_tpu_torch.ntt import cuda_ntt
+from liberate_tpu_torch.ntt import ops as torch_ops
 from liberate_tpu_torch.ntt.ntt_context import NttContext as TorchNttContext
 
 PARAMS = dict(logN=8, scale_bits=30, num_scales=3, num_special_primes=2,
@@ -40,7 +41,7 @@ def setup():
     tpack = tnc.level_pack(LEVEL, -2)
     q = np.array(ctx.q[start:stop], dtype=np.int64)
     return dict(ctx=ctx, plan=plan, xla_pack=nc.level_pack(LEVEL, -2),
-                tplan=tpack.plan, q=q, C=stop - start, N=ctx.N)
+                tpack=tpack, tplan=tpack.plan, q=q, C=stop - start, N=ctx.N)
 
 
 def _data(s, B, seed=7, lazy=False):
@@ -75,19 +76,30 @@ def test_ntt_fwd_twin_matches_pallas(setup, pre_enter, post_reduce, B):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("post_exit,post_reduce,B", [
-    (True, True, 3),        # intt_exit_reduce, batched as in _relin_pre
-    (True, False, 2),       # intt_exit (encrypt, decrypt)
-    (False, True, 1),       # intt_reduce (after the key switch)
-])
-def test_ntt_inv_twin_matches_pallas(setup, post_exit, post_reduce, B):
+@pytest.mark.parametrize("post_exit,post_reduce,no_norm,B", [
+    (True, True, False, 3),     # intt_exit_reduce, batched as in _relin_pre
+    (True, False, False, 2),    # intt_exit (encrypt, decrypt)
+    (False, True, False, 1),    # intt_reduce (after the key switch)
+    (False, False, True, 2),    # the coefficient-sharded inverse's locals
+], ids=["True-True-3", "True-False-2", "False-True-1", "no_norm-2"])
+def test_ntt_inv_twin_matches_pallas(setup, post_exit, post_reduce, no_norm,
+                                     B):
     a = _data(setup, B, lazy=True)
     want = _words(pallas_ntt.intt(_packed(a), setup["plan"],
                                   post_exit=post_exit,
-                                  post_reduce=post_reduce, interpret=True))
+                                  post_reduce=post_reduce, no_norm=no_norm,
+                                  interpret=True))
     got = cuda_ntt.ntt_inv_plain(torch.from_numpy(a), setup["tplan"],
-                                 post_exit=post_exit, post_reduce=post_reduce)
+                                 post_exit=post_exit, post_reduce=post_reduce,
+                                 no_norm=no_norm)
     assert np.array_equal(got.numpy(), want)
+    if no_norm:
+        assert torch.equal(cuda_ntt.ntt_inv(torch.from_numpy(a),
+                                            setup["tplan"], no_norm=True),
+                           got)
+        with pytest.raises(ValueError):
+            cuda_ntt.ntt_inv(torch.from_numpy(a), setup["tplan"],
+                             post_reduce=True, no_norm=True)
 
 
 def test_ksk_mulacc_twin_matches_pallas(setup):
@@ -151,10 +163,11 @@ def test_ntt_mulacc_twin_matches_fused_pallas(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("op", ["ntt", "enter_ntt", "intt",
-                                "intt_exit_reduce"])
+                                "intt_exit_reduce", "intt_no_norm"])
 def test_twins_equal_xla_ops_mod_q(setup, op):
     """The XLA path runs Montgomery twiddles: other lazy representatives,
-    the same values mod q (and identical words once reduced)."""
+    the same values mod q (and identical words once reduced). The
+    no-normalise inverse goes through the port's ``ops.intt_no_norm``."""
     a = _data(setup, 1)[0]
     want = _words(getattr(ops, op)(_packed(a), setup["xla_pack"]))
     tplan, ta = setup["tplan"], torch.from_numpy(a)
@@ -164,6 +177,7 @@ def test_twins_equal_xla_ops_mod_q(setup, op):
         "intt": lambda: cuda_ntt.ntt_inv(ta, tplan),
         "intt_exit_reduce": lambda: cuda_ntt.ntt_inv(
             ta, tplan, post_exit=True, post_reduce=True),
+        "intt_no_norm": lambda: torch_ops.intt_no_norm(ta, setup["tpack"]),
     }[op]().numpy()
     q = setup["q"][:, None]
     assert np.array_equal(got % q, want % q)
@@ -187,7 +201,10 @@ def test_wrappers_take_twins_only_on_cpu(setup):
                      (cuda_ntt.ksk_mulacc, cuda_ntt.ksk_mulacc_plain)):
         assert torch.equal(torch.stack(fn(a, k, k, tplan, 0, 0)),
                            torch.stack(twin(a, k, k, tplan, 0, 0)))
-    assert cuda_ntt.launches == {"ntt_fwd": 0, "ntt_inv": 0, "ksk_mulacc": 0,
+    assert torch.equal(cuda_ntt.ntt_inv(a, tplan, no_norm=True),
+                       cuda_ntt.ntt_inv_plain(a, tplan, no_norm=True))
+    assert cuda_ntt.launches == {"ntt_fwd": 0, "ntt_inv": 0,
+                                 "ntt_inv_no_norm": 0, "ksk_mulacc": 0,
                                  "ntt_mulacc": 0}
     with pytest.raises(RuntimeError, match="no kernel"):
         cuda_ntt.ntt_fwd(a.to("meta"), tplan)

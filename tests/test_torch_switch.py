@@ -261,7 +261,8 @@ def test_switch_matches_jax_montgomery_key_engine(port, monkeypatch):
         jax.block_until_ready(want)
     a = torch.from_numpy(a)
     got = {"mont": tm._switch(a, evk, level),
-           "fold": te._switch(a, evk, level)}
+           "fold": te._switch(a, evk, level),
+           "create_switcher": te.create_switcher(a, evk, level)}
     with _Unfolded():
         got["unfolded"] = te._switch(a, evk, level)
     for route, g in got.items():
