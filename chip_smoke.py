@@ -111,7 +111,22 @@
    the single-device #1 and #2, S launches each of the local #1 and of #2
    in its no-normalise mode and no other kernel, each local kernel held
    against its twin (its own kernel-table rows, ``ntt_fwd_coef_shard``
-   and ``ntt_inv_no_norm``), the sharded pair's wall.
+   and ``ntt_inv_no_norm``), the sharded pair's wall. Then silver on every
+   other mesh, 4 ranks as threads on the card (``mesh_engine_case``, as
+   the sharded engine): ``mesh2d_engine_phase`` on a (2 rns x 2 coef) and
+   a (1 x 4) mesh, the mult launching exactly the coefficient-sharded
+   route's kernels (R times one device's, every inverse #2 in its
+   no-normalise mode), then #3 on a shard's columns and the switch's
+   local #1 and #2 at rank 0's shapes against their twins;
+   ``mxu_mesh_phase``, the tensor-core engine on ``make_mesh(4)`` in both
+   key forms with ``mult_batched`` of four pairs, its words mod q of the
+   single-device tensor-core engine, each rank's mult launching #5 and #6
+   once a width group of its rows and the unfolded switch (#10 or #9)
+   once a width group of its with-special rows, never #11, then #10 and
+   #9 at rank 0's rows against their twins; ``multiprocess_phase``, two
+   processes of a gloo ``torch.distributed`` job on ``cuda:0``
+   (``tests/torch_multihost_worker.py``: the sharded engine across them,
+   and threshold decryption with one party a process), their wall.
 7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
    six special primes), one preset after the other, each preset's
    engines freed before the next: the engines' start (the context cold
@@ -128,8 +143,8 @@
    the butterfly and tensor-core paths ``ops_phase`` untimed; the segment
    rows #11 at bronze (B = 4) and #10 at platinum (B = 2); the batched
    mult untimed (bronze Bct = 4, platinum Bct = 2) with its peak memory.
-8. Prints the timed phases (the two multi-rank ones separately) and the
-   script's time, the card line, the kernels' JSON line and, last, the
+8. Prints the timed phases (the three this slice added separately) and
+   the script's time, the card line, the kernels' JSON line and, last, the
    result line.
 
 ``--split-only PRESET`` runs only the split by launch at the preset; the
@@ -183,6 +198,14 @@ SMALL = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
 # The multi-rank phases, ranks as threads on cuda:0.
 SHARDED = "silver sharded engine"
 COEF_SHARD = "gold coefficient-sharded transforms"
+MESH2D = "silver 2-D mesh engine"
+MXU_MESH = "silver tensor-core engine on an rns mesh"
+MULTIPROCESS = "silver two-process job"
+# Ranks of the silver rns meshes; the 2-D meshes (rns, coef) of 4 ranks.
+MESH_RANKS = 4
+MESH2D_SHAPES = ((2, 2), (1, 4))
+# Seconds for the two-process job and for each of its collectives.
+MULTIPROCESS_TIMEOUT = 300.0
 
 
 def cuda_ms(fn, reps, warmup=5):
@@ -1603,11 +1626,12 @@ def _words_equal(e, a, b):
     return "raw" if raw else "mod q"
 
 
-def _sharded_flow(e, ms):
+def _sharded_flow(e, ms, batched=False):
     """The sharded engine's path: keygen (a rotation key too), two
-    encryptions, mult, level_up, rotate_single, three parties' collective
-    public key and encryption under it. Returns the keys and ciphertexts
-    and the threshold decryption."""
+    encryptions, mult, level_up, rotate_single, with ``batched``
+    mult_batched of four pairs, three parties' collective public key and
+    encryption under it. Returns the keys and ciphertexts and the threshold
+    decryption."""
     sk = e.create_secret_key()
     pk = e.create_public_key(sk)
     evk = e.create_evk(sk)
@@ -1624,30 +1648,145 @@ def _sharded_flow(e, ms):
                  level_up=e.level_up(ct1, 2),
                  rotate_single=e.rotate_single(ct1, rotk), cpk=cpk,
                  ct_collective=ctc)
+    if batched:
+        for i, c in enumerate(e.mult_batched([ct1, ct2, ct1, ct2],
+                                             [ct2, ct1, ct1, ct2], evk)):
+            words[f"batched{i}"] = c
     return words, _threshold_decrypt(e, ctc, sks)
 
 
-def sharded_engine_phase(eng, rows, ranks=4):
-    """The RNS-channel-sharded engine at silver on ``ranks`` ranks as
-    threads on cuda:0 (C0_sp = 18 does not divide by 4: the padded layout):
-    keygen, encorypt, mult with relin and rescale, level_up,
-    rotate_single, three parties' threshold decryption and decrode; every
-    key and ciphertext gathered from the ranks equal to the single-device
-    engine's at the same seed (``eng``, reseeded), mod q (raw where it
-    is); the mult, with the counters zeroed just before, launches R times
-    the single-device mult's kernels and no other; its wall (median of 5,
-    rank 0's clock between barriers) and busy time (torch.profiler over
-    the ranks' kernels), the decode errors and the phase's peak memory.
-    One card: a functional check, no speed claim."""
-    import statistics
+def _mesh_barrier(mesh):
+    """Every rank of the mesh has reached this point: a barrier along each
+    of its axes in turn."""
+    for axis in mesh.axis_names:
+        if mesh.axis_size(axis) > 1:
+            _barrier(mesh, axis)
+
+
+def _flat_rank(mesh):
+    r = 0
+    for axis in mesh.axis_names:
+        r = r * mesh.axis_size(axis) + mesh.axis_index(axis)
+    return r
+
+
+def _run_mesh(ranks, body):
+    """run_ranks(ranks, lambda: body(window)) on cuda:0, with
+    torch.profiler over one window: every rank calls window(mesh, fn) once,
+    which runs fn three times between barriers. The profiler starts and
+    stops in this thread (kineto refuses a profiler made in another): rank
+    0 hands it the window. Returns the ranks' results and the window's
+    device busy ms, copy ms (to and from host buffers) and launches, each
+    per call of fn (None where the window never opened)."""
     import threading
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from liberate_tpu_torch.parallel import run_ranks
+
+    events = [threading.Event() for _ in range(3)]   # ready, go, done
+
+    def window(mesh, fn):
+        r = _flat_rank(mesh)
+        _mesh_barrier(mesh)
+        if r == 0:
+            events[0].set()
+            events[1].wait()
+        _mesh_barrier(mesh)
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        _mesh_barrier(mesh)
+        if r == 0:
+            events[2].set()
+
+    out = []
+
+    def run():
+        try:
+            out.extend(run_ranks(ranks, lambda: body(window),
+                                 device="cuda:0"))
+        except BaseException as e:      # noqa: BLE001 - raised below
+            out.append(e)
+
+    ranks_run = threading.Thread(target=run)
+    ranks_run.start()
+    while not events[0].wait(1) and ranks_run.is_alive():
+        pass
+    busy = copies = launched = None
+    if events[0].is_set():
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                events[1].set()
+                while not events[2].wait(1) and ranks_run.is_alive():
+                    pass
+        except BaseException:
+            events[1].set()     # the ranks go on if the profiler failed
+            ranks_run.join()
+            raise
+        kern = [k for k in prof.key_averages()
+                if k.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(k.self_device_time_total for k in kern) / 1e3 / 3
+        copies = sum(k.self_device_time_total for k in kern
+                     if k.key.startswith("Memcpy")) / 1e3 / 3
+        launched = sum(k.count for k in kern) // 3
+    ranks_run.join()
+    if len(out) != ranks:
+        raise out[0]
+    return out, busy, copies, launched
+
+
+def _mesh_mult(e, a, b, evk):
+    """On every rank of e's mesh: the launches of one e.mult(a, b, evk)
+    with the counters zeroed just before (read once every rank has
+    finished), and the walls of five more (ms, rank's clock between
+    barriers, after one more)."""
+    import torch
+
+    mesh, r = e.mesh, _flat_rank(e.mesh)
+    _mesh_barrier(mesh)
+    if r == 0:
+        reset_counters()
+    _mesh_barrier(mesh)
+    e.mult(a, b, evk)
+    torch.cuda.synchronize()
+    _mesh_barrier(mesh)
+    path = counters()
+    walls = []
+    for _ in range(6):
+        _mesh_barrier(mesh)
+        t = time.perf_counter()
+        e.mult(a, b, evk)
+        torch.cuda.synchronize()
+        _mesh_barrier(mesh)
+        walls.append((time.perf_counter() - t) * 1e3)
+    return path, walls[1:]
+
+
+def mesh_engine_case(label, eng, mesh_fn, ranks, expect, keep=None,
+                     batched=False, **kw):
+    """The engine of ``eng``'s parameters and ``kw`` on ``ranks`` ranks as
+    threads on cuda:0, each on its mesh ``mesh_fn()``: ``_sharded_flow``
+    (keygen, encorypt, mult with relin and rescale, level_up,
+    rotate_single, three parties' threshold decryption, with ``batched``
+    mult_batched of four pairs) and decrode; every key and ciphertext
+    gathered from the ranks equal to ``eng``'s (reseeded: the single-device
+    engine at the same seed) mod q (raw where it is), the decode errors <
+    1e-4 and the same messages on every rank. The mult, with the counters
+    zeroed just before, must launch the sum over the ranks of
+    ``expect(engine, one)`` (one: the single-device mult's launches); its
+    wall (median of 5, rank 0's clock between barriers) and busy time
+    (torch.profiler over the ranks' kernels), the phase's peak memory.
+    Returns the mult's launches and ``keep(engine, words)`` of rank 0
+    (every rank calls it). One card: a functional check, no speed
+    claim."""
+    import statistics
+
+    import numpy as np
+    import torch
+
     import liberate_tpu_torch
-    from liberate_tpu_torch.parallel import make_mesh, run_ranks
 
     params = {k: v for k, v in liberate_tpu_torch.params["silver"].items()
               if k != "mesh_shape"}
@@ -1659,7 +1798,7 @@ def sharded_engine_phase(eng, rows, ranks=4):
     torch.cuda.reset_peak_memory_stats()
     eng.refresh(SEED)
     t = time.perf_counter()
-    want, dec_t_want = _sharded_flow(eng, ms)
+    want, dec_t_want = _sharded_flow(eng, ms, batched)
     ct1, ct2, evk = want["ct1"], want["ct2"], want["evk"]
     reset_counters()
     eng.mult(ct1, ct2, evk)
@@ -1667,94 +1806,42 @@ def sharded_engine_phase(eng, rows, ranks=4):
     one = counters()
     t_single = time.perf_counter() - t
 
-    def body():
-        e = liberate_tpu_torch.CkksEngine(mesh=make_mesh(ranks), seed=SEED,
-                                          **params)
-        mesh, r = e.mesh, e.mesh.axis_index("rns")
+    def body(window):
+        e = liberate_tpu_torch.CkksEngine(mesh=mesh_fn(), seed=SEED,
+                                          **params, **kw)
+        r = _flat_rank(e.mesh)
         t = time.perf_counter()
-        words, dec_t = _sharded_flow(e, ms)
+        words, dec_t = _sharded_flow(e, ms, batched)
         dec = e.decrode(words["out"], words["sk"])
         torch.cuda.synchronize()
         t_flow = time.perf_counter() - t
         full = {k: e.gather(v) for k, v in words.items()}
         a, b, ek = words["ct1"], words["ct2"], words["evk"]
-        _barrier(mesh, "rns")
-        if r == 0:
-            reset_counters()
-        _barrier(mesh, "rns")
-        e.mult(a, b, ek)
-        torch.cuda.synchronize()
-        _barrier(mesh, "rns")
-        path = counters()
-        walls = []
-        for _ in range(6):
-            _barrier(mesh, "rns")
-            t = time.perf_counter()
-            e.mult(a, b, ek)
-            torch.cuda.synchronize()
-            _barrier(mesh, "rns")
-            walls.append((time.perf_counter() - t) * 1e3)
-        # The profiler runs in the main thread (it must start and stop in
-        # the thread that made it): rank 0 hands it the window.
-        _barrier(mesh, "rns")
-        if r == 0:
-            window[0].set()
-            window[1].wait()
-        _barrier(mesh, "rns")
-        for _ in range(3):
-            e.mult(a, b, ek)
-        torch.cuda.synchronize()
-        _barrier(mesh, "rns")
-        if r == 0:
-            window[2].set()
-        return (full if r == 0 else None, dec, dec_t, t_flow, path,
-                walls[1:])
+        path, walls = _mesh_mult(e, a, b, ek)
+        window(e.mesh, lambda: e.mult(a, b, ek))
+        kept = keep(e, words) if keep else None
+        return (full if r == 0 else None, dec, dec_t, t_flow, path, walls,
+                expect(e, one), kept if r == 0 else None)
 
-    window = [threading.Event() for _ in range(3)]   # ready, go, done
-    out = []
-
-    def run():
-        try:
-            out.extend(run_ranks(ranks, body, device="cuda:0"))
-        except BaseException as e:      # noqa: BLE001 - raised below
-            out.append(e)
-
-    ranks_run = threading.Thread(target=run)
-    ranks_run.start()
-    while not window[0].wait(1) and ranks_run.is_alive():
-        pass
-    busy = launched = copies = None
-    if window[0].is_set():
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            window[1].set()
-            while not window[2].wait(1) and ranks_run.is_alive():
-                pass
-        kern = [k for k in prof.key_averages()
-                if k.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(k.self_device_time_total for k in kern) / 1e3 / 3
-        copies = sum(k.self_device_time_total for k in kern
-                     if k.key.startswith("Memcpy")) / 1e3 / 3
-        launched = sum(k.count for k in kern) // 3
-    ranks_run.join()
-    if len(out) != ranks:
-        raise out[0]
-    full, dec, dec_t, t_flow, path, walls = out[0]
+    out, busy, copies, launched = _run_mesh(ranks, body)
+    full, dec, dec_t, t_flow, path, walls, _, kept = out[0]
+    want_path = dict.fromkeys(one, 0)
+    for o in out:
+        for k, v in o[6].items():
+            want_path[k] += v
     peak = torch.cuda.max_memory_allocated()
     same = {k: _words_equal(eng, full[k], want[k]) for k in want}
     err = abs(eng.absmax_error(dec, ms[0] * ms[1]))
     err_t = abs(eng.absmax_error(dec_t[:eng.num_slots], ms[0]))
     agree = all(np.array_equal(o[1], dec) and np.array_equal(o[2], dec_t)
                 for o in out)
-    print(f"silver sharded engine, {ranks} ranks on cuda:0 (C0_sp "
-          f"{eng.ntt.total_channels} padded to "
-          f"{-(-eng.ntt.total_channels // ranks) * ranks}): words of the "
-          f"single-device engine: "
+    print(f"{label}: words of the single-device engine: "
           + ", ".join(f"{k} {v or 'DIFFER'}" for k, v in same.items())
           + f"; |err| mult {err:.3e}, threshold decryption {err_t:.3e}, "
           f"{'the same' if agree else 'DIFFERENT'} messages on every rank; "
           f"the path {t_flow:.2f} s on rank 0 (single-device "
           f"{t_single:.2f} s with one more mult)")
-    print(f"  silver sharded mult: launches "
+    print(f"  {label} mult: launches "
           f"{ {k: v for k, v in path.items() if v} } (single-device "
           f"{ {k: v for k, v in one.items() if v} }); wall "
           f"{statistics.median(walls):.3f} ms (median of 5, min "
@@ -1765,16 +1852,199 @@ def sharded_engine_phase(eng, rows, ranks=4):
           f"before)")
     bad = [k for k, v in same.items() if not v]
     if bad:
-        raise AssertionError(f"silver sharded engine: {bad} differ from the "
-                             f"single-device engine")
+        raise AssertionError(f"{label}: {bad} differ from the single-device "
+                             f"engine")
     if not (err < 1e-4 and err_t < 1e-4 and agree):
-        raise AssertionError(f"silver sharded engine: errors {err}, {err_t} "
-                             f"or ranks disagree ({agree})")
-    if path != {k: ranks * v for k, v in one.items()}:
-        raise AssertionError(f"silver sharded mult launched {path}, not "
-                             f"{ranks} x {one}")
+        raise AssertionError(f"{label}: errors {err}, {err_t} or ranks "
+                             f"disagree ({agree})")
+    if path != want_path:
+        raise AssertionError(f"{label} mult launched {path}, not "
+                             f"{want_path}")
+    return path, kept
+
+
+def sharded_engine_phase(eng, rows):
+    """The RNS-channel-sharded engine at silver on MESH_RANKS ranks as
+    threads (C0_sp = 19 does not divide by 4: the padded layout), as
+    ``mesh_engine_case``: the mult launches R times the single-device
+    mult's kernels and no other."""
+    from liberate_tpu_torch.parallel import make_mesh
+
+    C, ranks = eng.ntt.total_channels, MESH_RANKS
+    path, _ = mesh_engine_case(
+        f"silver sharded engine, {ranks} ranks on cuda:0 (C0_sp {C} padded "
+        f"to {-(-C // ranks) * ranks})", eng, lambda: make_mesh(ranks),
+        ranks, lambda e, one: one)
     check_launches("silver sharded engine", path, own_kernels(eng), rows)
-    del out, full, want
+
+
+def _no_norm(one):
+    """The single-device launches with every inverse transform in the
+    no-normalise mode: those of the coefficient-sharded transforms."""
+    out = dict.fromkeys(one, 0)
+    for k, v in one.items():
+        out["ntt_inv_no_norm" if k == "ntt_inv" else k] += v
+    return out
+
+
+def mesh2d_engine_phase(eng, rows, gen):
+    """The engine on meshes with a ``coef`` axis at silver, 4 ranks as
+    threads (``mesh_engine_case``): MESH2D_SHAPES, a (2 rns x 2 coef) and a
+    coefficient-only (1 x 4) mesh. Its mult launches exactly the mesh
+    route's kernels: R times the single-device mult's, each forward the
+    local #1 of a shard (logL 14 and 13), each inverse #2 in its
+    no-normalise mode (the sharded inverse's local), the split switch's #3
+    on the shard's columns. Then the local kernels at rank 0's shapes
+    against their twins: #3 on a coefficient shard, the switch's #1 and #2
+    locals; and on the card an engine of 2^7-word shards refused."""
+    import liberate_tpu_torch
+    from liberate_tpu_torch.ntt import cuda_ntt
+    from liberate_tpu_torch.parallel import make_mesh2d, run_ranks
+
+    def keep(e, words):
+        level = words["out"].level
+        return (e.pack(level, -2), e._ksk_at(words["evk"], level),
+                e.ntt.parts(level)[0].part_id, len(e.ntt.parts(level)))
+
+    for shape in MESH2D_SHAPES:
+        ranks = shape[0] * shape[1]
+        _, (pack_sp, (k0, k1, at), part_off, P) = mesh_engine_case(
+            f"silver 2-D mesh engine {shape[0]} rns x {shape[1]} coef, "
+            f"{ranks} ranks on cuda:0", eng,
+            lambda shape=shape: make_mesh2d(*shape), ranks,
+            lambda e, one: _no_norm(one), keep)
+        local = pack_sp.coef.local
+        C, logL = local.q.shape[0], local.logN
+        L = 1 << logL
+        x = random_words(local.q, (P, C, L), gen, lazy=True)
+        f = random_words(local.q, (2, C, L), gen, lazy=True)
+        shape_label = (f"silver {shape[0]}x{shape[1]} mesh rank 0 C={C} "
+                       f"logL={logL}")
+        check_case("ksk_mulacc", f"{shape_label} P={P} (split switch on a "
+                   f"coefficient shard)",
+                   lambda: cuda_ntt.ksk_mulacc(x, k0, k1, local, at,
+                                               part_off),
+                   lambda: cuda_ntt.ksk_mulacc_plain(x, k0, k1, local, at,
+                                                     part_off),
+                   bound(8 * (3 * x.numel() + 2 * C * L),
+                         2 * x.numel() * MONT_MULS), rows,
+                   "liberate_tpu_torch/csrc/ksk_mulacc.cu",
+                   "liberate_tpu/ntt/pallas_ntt.py:693")
+        check_case("ntt_fwd_coef_shard", f"{shape_label} B={P} (switch "
+                   f"extension)", lambda: cuda_ntt.ntt_fwd(x, local),
+                   lambda: cuda_ntt.ntt_fwd_plain(x, local),
+                   transform_bound(x, logL, 0), rows,
+                   "liberate_tpu_torch/csrc/ntt.cu",
+                   "liberate_tpu/ntt/pallas_ntt.py:534")
+        check_case("ntt_inv_no_norm", f"{shape_label} B=2 (intt_reduce's "
+                   f"local)",
+                   lambda: cuda_ntt.ntt_inv(f, local, no_norm=True),
+                   lambda: cuda_ntt.ntt_inv_plain(f, local, no_norm=True),
+                   transform_bound(f, logL, 0), rows,
+                   "liberate_tpu_torch/csrc/ntt.cu",
+                   "liberate_tpu/ntt/pallas_ntt.py:1112")
+
+    # On the card an engine whose coefficient shards are shorter than the
+    # kernels' range is refused as it is made: there is no plain fallback.
+    def refused():
+        try:
+            liberate_tpu_torch.CkksEngine(
+                mesh=make_mesh2d(1, 2), seed=SEED, logN=8, scale_bits=30,
+                num_scales=3, num_special_primes=2, is_secured=False)
+        except ValueError:
+            return True
+        return False
+
+    if not all(run_ranks(2, refused, device="cuda:0")):
+        raise AssertionError("an engine of 2^7-word coefficient shards on "
+                             "the card was not refused")
+    print("engine on a (1, 2) mesh at logN 8 (2^7-word shards) on the card: "
+          "refused as it is made")
+
+
+def mxu_mesh_phase(eng_mxu, eng_mont, rows, gen):
+    """The tensor-core engine on an ``rns`` mesh at silver, MESH_RANKS ranks
+    as threads, in both key forms (``mesh_engine_case`` with mult_batched
+    of four pairs): the words mod q of the single-device tensor-core
+    engine, which folds the mod-down. Each rank's mult launches #5 and #6
+    once for each width group of its rows of the ordinary layout and the
+    unfolded switch of its key form (#10 with the Shoup-form key, #9 with
+    the Montgomery-form one) once for each width group of its
+    with-special rows; #11 never. Then #10 and #9 at rank 0's shape
+    against their twins."""
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import switch_route
+    from liberate_tpu_torch.ntt import cuda_mxu
+    from liberate_tpu_torch.parallel import make_mesh
+
+    def expect(e, one):
+        level = 1
+        out = dict.fromkeys(one, 0)
+        n = len(e.pack(level, -1).mxu)
+        out["mxu_ntt_fwd"] = out["mxu_ntt_inv"] = n
+        out[switch_route(e.ctx.logN, e.use_shoup_ksk, True)] = len(
+            e.pack(level, -2).mxu)
+        return out
+
+    def keep(e, words):
+        level = words["out"].level
+        parts = e.ntt.parts(level)
+        return (e.pack(level, -2), e._mxu_switch_tables(level),
+                e._ksk_at(words["evk"], level), parts[0].part_id, len(parts),
+                max(p.alpha for p in parts))
+
+    C0, ranks = eng_mxu.ntt.total_channels, MESH_RANKS
+    for e1, shoup in ((eng_mxu, True), (eng_mont, False)):
+        form = "Shoup" if shoup else "Montgomery"
+        _, (pack_sp, (terms, off0, _), (k0, k1, at), part_off, P, A) = \
+            mesh_engine_case(
+                f"silver tensor-core engine, {form}-form key, {ranks} ranks "
+                f"on cuda:0 (C0_sp {C0} padded to "
+                f"{-(-C0 // ranks) * ranks})", e1,
+                lambda: make_mesh(ranks), ranks, expect, keep,
+                batched=True, use_mxu_ntt=True, use_shoup_ksk=shoup)
+        name = switch_route(e1.ctx.logN, shoup, True)
+        groups = pack_sp.mxu
+        C = pack_sp.q.shape[0]
+        S, R = groups[0].plan.S, groups[0].plan.R
+        st = torch.randint(0, 1 << 62, (P, A, S * R), generator=gen,
+                           device=gen.device, dtype=torch.int64)
+        check_case(
+            name, f"silver rank 0's {C} rows of the with-special layout, "
+            f"P={P} A={A}, {len(groups)} group(s), {form}-form key",
+            lambda: cuda_mxu.dispatch_switch_inv(
+                st, terms, off0, k0, k1, groups, at, part_off),
+            lambda: cuda_mxu.dispatch_switch_inv(
+                st, terms, off0, k0, k1, groups, at, part_off, plain=True),
+            bound(*mxu_switch_work(groups, P, A, 0, S, R, mont=not shoup)),
+            rows, "liberate_tpu_torch/csrc/mxu_switch.cu",
+            "liberate_tpu/ntt/mxu_pallas.py:" + ("777" if shoup else "588"))
+
+
+def multiprocess_phase():
+    """The port as a torch.distributed job of two processes on cuda:0 at
+    silver over gloo (``tests/torch_multihost_worker.py``): the RNS-sharded
+    engine across them against a single-device engine of the same seed,
+    and two parties' threshold decryption with one party a process. Prints
+    their output and wall; a process that fails, or the time limit
+    (MULTIPROCESS_TIMEOUT), fails the phase."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_multihost_worker as worker
+
+    codes, outs, wall = worker.launch(2, "cuda:0", "silver",
+                                      MULTIPROCESS_TIMEOUT)
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("["):
+                print(f"  {line}")
+    print(f"silver two-process job on cuda:0 (gloo): exit codes "
+          f"{codes}, wall {wall:.2f} s (two processes' start, the engines, "
+          f"both steps)")
+    if codes != [0, 0] or not all(f"[{r}] OK" in o
+                                  for r, o in enumerate(outs)):
+        raise AssertionError("the two-process job failed:\n"
+                             + "\n".join(outs))
 
 
 def data_phase(eng, run):
@@ -2410,6 +2680,25 @@ def main():
     del eng, eng_mxu, e, run
     torch.cuda.empty_cache()
 
+    # -- 6b. silver on every mesh, and as a job of two processes ------------
+    t = time.perf_counter()
+    eng = liberate_tpu_torch.CkksEngine(**silver, seed=SEED)
+    mesh2d_engine_phase(eng, rows, gen)
+    new_phases[MESH2D] = time.perf_counter() - t
+    t = time.perf_counter()
+    eng_mxu = liberate_tpu_torch.CkksEngine(**silver, seed=SEED,
+                                            use_mxu_ntt=True)
+    eng_mont = liberate_tpu_torch.CkksEngine(**silver, seed=SEED,
+                                             use_mxu_ntt=True,
+                                             use_shoup_ksk=False)
+    mxu_mesh_phase(eng_mxu, eng_mont, rows, gen)
+    new_phases[MXU_MESH] = time.perf_counter() - t
+    del eng, eng_mxu, eng_mont
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    multiprocess_phase()
+    new_phases[MULTIPROCESS] = time.perf_counter() - t
+
     # -- 7. bronze and platinum: start, kernels, paths ---------------------------
     for preset in ("bronze", "platinum"):
         preset_phase(preset, dev, gen, rows, scratch, new_phases)
@@ -2418,8 +2707,9 @@ def main():
     print("timed phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in new_phases.items())
         + f"; {sum(new_phases.values()):.1f} s in all; the phases this "
-        f"slice added ({SHARDED}, {COEF_SHARD}): "
-        f"{new_phases[SHARDED] + new_phases[COEF_SHARD]:.1f} s")
+        f"slice added ({MESH2D}, {MXU_MESH}, {MULTIPROCESS}): "
+        f"{sum(new_phases[k] for k in (MESH2D, MXU_MESH, MULTIPROCESS)):.1f}"
+        f" s")
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -43,6 +43,7 @@ from ..device import resolve_device
 from ..ntt import cuda_mxu, cuda_ntt, ops, u64
 from ..ntt.ntt_context import NttContext
 from ..parallel import comm
+from ..parallel.sharding import coef_columns
 from ..version import VERSION
 from .context.ckks_context import CkksContext
 from .data_struct import DataStruct
@@ -260,19 +261,20 @@ def _mc_add_core(pt, d0, pack):
     return ops.reduce_2q(n0, pack)
 
 
-def _rotate_sk_core(sk, gather, neg, pack):
+def _rotate_sk_core(sk, perm, pack):
     """The coefficient-domain signed permutation of the secret key (the
     Montgomery form commutes with it) over the ordinary channels: the
-    domain's inverse transform, the permutation, negatives repaired to
-    [0, 2q), the forward transform."""
+    domain's inverse transform, the permutation (``perm``: the engine's
+    ``ops.apply_signed_perm``), negatives repaired to [0, 2q), the forward
+    transform."""
     c = ops.intt(sk, pack)
-    r = ops.canon_2q(ops.apply_signed_perm(c, gather, neg), pack)
+    r = ops.canon_2q(perm(c), pack)
     return ops.ntt(r, pack)
 
 
-def _rotate_ct_core(d, gather, neg, pack):
+def _rotate_ct_core(d, perm, pack):
     """The signed permutation of plain [0, q) words, back to [0, q)."""
-    r = ops.make_unsigned(ops.apply_signed_perm(d, gather, neg), pack)
+    r = ops.make_unsigned(perm(d), pack)
     return ops.reduce_2q(r, pack)
 
 
@@ -328,16 +330,21 @@ def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
 FUSED_SWITCH_MAX_LOGN = 15
 
 
-def butterfly_switch_route(logN, split):
+def butterfly_switch_route(logN, split, coef_sharded=False):
     """The butterfly switch core the JAX engine runs at this logN and
     ``use_split_switch``: ``split`` (the forward NTT of the parts, then
     ``ksk_mulacc``), ``fused`` (``ntt_mulacc``: both in one kernel; logN <=
     FUSED_SWITCH_MAX_LOGN) or ``composed`` (the forward NTT, then the key
     products and the sum over the parts as torch ops, where the JAX engine
-    composes them in XLA)."""
+    composes them in XLA). On a coefficient shard (``coef_sharded``) the
+    forward NTT is the coefficient-sharded one, so the unsplit core, a
+    whole-length transform, is never taken: ``split`` runs ``ksk_mulacc``
+    on the shard's columns, else ``composed``."""
     if split:
         return "split"
-    return "fused" if logN <= FUSED_SWITCH_MAX_LOGN else "composed"
+    if coef_sharded or logN > FUSED_SWITCH_MAX_LOGN:
+        return "composed"
+    return "fused"
 
 
 # The largest logN at which the tensor-core switch folds the special-prime
@@ -346,15 +353,20 @@ def butterfly_switch_route(logN, split):
 FOLD_MAX_LOGN = 15
 
 
-def switch_route(logN, shoup_ksk):
+def switch_route(logN, shoup_ksk, on_mesh=False):
     """The tensor-core switch kernel the JAX engine runs at this logN and
     key form, by the name of its launch counter: ``mxu_switch`` (mod-down
-    folded in; Shoup-form key, logN <= FOLD_MAX_LOGN), ``mxu_switch_inv``
-    (Shoup-form key, separate mod-down) or ``mxu_switch_inv_mont``
-    (Montgomery-form key, separate mod-down)."""
+    folded in; Shoup-form key, logN <= FOLD_MAX_LOGN, one device),
+    ``mxu_switch_inv`` (Shoup-form key, separate mod-down) or
+    ``mxu_switch_inv_mont`` (Montgomery-form key, separate mod-down). On a
+    mesh (``on_mesh``) the fold is never taken: it needs every special row
+    at each column, and a rank holds its own rows (the JAX engine folds on
+    a single chip only)."""
     if not shoup_ksk:
         return "mxu_switch_inv_mont"
-    return "mxu_switch" if logN <= FOLD_MAX_LOGN else "mxu_switch_inv"
+    if on_mesh or logN > FOLD_MAX_LOGN:
+        return "mxu_switch_inv"
+    return "mxu_switch"
 
 
 def _ksk_shoup(k, pack):
@@ -389,8 +401,13 @@ class CkksEngine:
     rows of the single-device engine's words at the same seed, and the
     steps that read other ranks' channels gather them (the rescale's
     dropped channel, the key switch's input and its special rows,
-    ``level_up``, decryption). Butterfly domain only; a mesh with a
-    ``coef`` axis is not taken yet.
+    ``level_up``, decryption). On a mesh with a ``coef`` axis of S ranks
+    (``parallel.make_mesh2d(r, s)``, ``r`` may be 1; butterfly domain) the
+    engine also holds only its coefficient columns (N / S of them): its
+    transforms are the coefficient-sharded ones, and the steps that cross
+    columns (the Galois permutations, decryption) gather along ``coef``.
+    In the tensor-core domain a mesh has no ``coef`` axis, and the switch
+    never folds the mod-down (``switch_route``).
     ``use_mxu_ntt``: run every transform and the key switch in the
     tensor-core kernels (natural-order NTT domain) instead of
     the butterfly kernels; one engine uses one domain throughout, and its
@@ -423,15 +440,10 @@ class CkksEngine:
         self.mesh = mesh
         self.mesh_shape = mesh_shape
         self.mesh_axis = "rns"
+        self.coef_shards, self.coef_index = 1, 0
         if mesh is not None:
-            if mesh.axis_size("coef") > 1:
-                raise NotImplementedError(
-                    "the engine on a mesh with a coef axis is not ported yet "
-                    "(parallel.coef_shard has the sharded transforms); use "
-                    "make_mesh(n)")
-            if use_mxu_ntt:
-                raise NotImplementedError("the engine on a mesh runs the "
-                                          "butterfly domain only")
+            self.coef_shards = mesh.axis_size("coef")
+            self.coef_index = mesh.axis_index("coef")
             self.channel_quantum = mesh.axis_size(self.mesh_axis)
             self.torch_device = mesh.device
         else:
@@ -452,10 +464,12 @@ class CkksEngine:
             self.ctx = mesh.shared(
                 ("ctx", tuple(sorted(ctx_params.items()))),
                 lambda: CkksContext(verbose=verbose, **ctx_params))
-        self.ntt = NttContext(
-            self.ctx, self.torch_device, use_mxu=self.use_mxu_ntt,
-            shard=None if mesh is None else (
-                mesh.axis_index(self.mesh_axis), self.channel_quantum))
+        self.ntt = NttContext(self.ctx, self.torch_device,
+                              use_mxu=self.use_mxu_ntt, mesh=mesh)
+        if self.coef_shards > 1:
+            # The coefficient plans' checks (a power of two; on the card
+            # shards of at least 2^8 words) raise here, not at first use.
+            self.pack(0, -2)
 
         # The deepest usable level.
         self.num_levels = self.ntt.num_levels - 1
@@ -465,10 +479,9 @@ class CkksEngine:
 
         if mesh is not None and seed is None:
             # Every rank draws the same words: rank 0's random key.
-            seed = comm.broadcast(
+            seed = comm.broadcast_mesh(
                 torch.from_numpy(np.frombuffer(os.urandom(32), np.uint32)
-                                 .astype(np.int64)), 0, mesh,
-                self.mesh_axis).numpy()
+                                 .astype(np.int64)), mesh).numpy()
         self.rng = Csprng(self.ctx.N, self.num_ordinary,
                           max(self.num_special, 2), sigma=self.ctx.sigma,
                           seed=seed, device=self.torch_device)
@@ -613,8 +626,9 @@ class CkksEngine:
     #
     # A layout is (level, mult_type). Without a mesh these helpers are the
     # single-device identities; on one, a layout's words are this rank's
-    # rows of it (``ntt.rows``), and a step that reads other ranks' channels
-    # gathers them.
+    # rows of it (``ntt.rows``) and, on a coef axis, its coefficient columns
+    # (``_cols``); a step that reads other ranks' channels gathers them
+    # along ``rns``, one that reads other columns along ``coef``.
 
     def _cached(self, key, build):
         if key not in self._mesh_cache:
@@ -629,20 +643,49 @@ class CkksEngine:
     def _offsets(self, level, mult_type, base):
         return [r - base for r in self.ntt.rows(level, mult_type)]
 
-    def _local(self, full, level, mult_type):
-        """This rank's rows of a layout's full-width words [..., C, N]."""
+    def _cols(self, full):
+        """This rank's coefficient columns of full-length words [..., N]
+        (the CSPRNG's draws, encoded messages): all of them but on a coef
+        axis."""
+        if self.coef_shards == 1:
+            return full
+        return full[..., coef_columns(self.mesh, full.shape[-1])].contiguous()
+
+    def _local_rows(self, full, level, mult_type):
+        """This rank's rows of a layout's words [..., C, n] of all its
+        channels."""
         if self.mesh is None:
             return full
         start = self.ntt.channel_range(level, mult_type)[0]
         return full[..., self._index(self._offsets(level, mult_type, start)),
                     :]
 
+    def _local(self, full, level, mult_type):
+        """This rank's rows and columns of a layout's full-width words
+        [..., C, N]."""
+        return self._cols(self._local_rows(full, level, mult_type))
+
     def _gather(self, x, level, mult_type):
-        """A layout's full-width words [..., C, N] from every rank's rows."""
+        """A layout's words [..., C, n] of all its channels from every
+        rank's rows (along ``rns``: the columns stay this rank's)."""
         if self.mesh is None:
             return x
-        full = comm.all_gather(x, self.mesh, self.mesh_axis)
-        return full[..., :self.ntt.num_channels(level, mult_type), :]
+        if self.channel_quantum > 1:
+            x = comm.all_gather(x, self.mesh, self.mesh_axis)
+        return x[..., :self.ntt.num_channels(level, mult_type), :]
+
+    def _gather_full(self, x, level, mult_type):
+        """A layout's full-width words [..., C, N] on every rank: gathered
+        along ``rns``, then along ``coef``."""
+        x = self._gather(x, level, mult_type)
+        if self.coef_shards > 1:
+            x = comm.all_gather(x, self.mesh, "coef", dim=-1)
+        return x
+
+    def _dc(self, vals):
+        """Per-channel constants [C] to add to coefficient 0: zeros on a
+        coefficient shard that does not hold it."""
+        return vals if self.coef_index == 0 else torch.zeros_like(vals)
 
     def _fit(self, x, src, dst):
         """Words of the layout src in the layout dst (whose channels start
@@ -651,7 +694,7 @@ class CkksEngine:
         if src == dst:
             return x
         full = self._gather(x, *src)
-        return self._local(
+        return self._local_rows(
             ops.fit_channels(full[..., dst[0] - src[0]:, :],
                              self.ntt.num_channels(*dst)), *dst)
 
@@ -682,8 +725,8 @@ class CkksEngine:
         b = np.random.randint(amin * base, amax * base, self.num_slots) / base
         if self.mesh is not None:
             # Every rank encrypts the same message: rank 0's.
-            a, b = comm.broadcast(torch.from_numpy(np.stack([a, b])), 0,
-                                  self.mesh, self.mesh_axis).numpy()
+            a, b = comm.broadcast_mesh(torch.from_numpy(np.stack([a, b])),
+                                       self.mesh).numpy()
         return a + b * 1j
 
     # -- encode / decode ------------------------------------------------------------
@@ -713,7 +756,7 @@ class CkksEngine:
 
     def create_secret_key(self, include_special: bool = True) -> DataStruct:
         """Uniform ternary secret in the NTT+Montgomery domain."""
-        ternary = self.rng.randint(amax=3, shift=-1, repeats=1)
+        ternary = self._cols(self.rng.randint(amax=3, shift=-1, repeats=1))
         mult_type = -2 if include_special else -1
         sk = _sk_core(ternary, self.pack(0, mult_type))
         return DataStruct(sk, include_special, True, True,
@@ -729,7 +772,7 @@ class CkksEngine:
         mult_type = -2 if include_special else -1
         pack = self.pack(0, mult_type)
 
-        e = self.rng.discrete_gaussian(repeats=1)
+        e = self._cols(self.rng.discrete_gaussian(repeats=1))
         if a is None:
             a = crs
         if a is None:
@@ -806,14 +849,15 @@ class CkksEngine:
     # -- encrypt / decrypt --------------------------------------------------------
 
     def encrypt(self, pt, pk: DataStruct, level: int = 0) -> DataStruct:
+        """Encrypt the full-length plaintext ``pt`` [1, N] (``encode``)."""
         if pk.origin != types.origins["pk"]:
             raise errors.NotMatchType(origin=pk.origin, to=types.origins["pk"])
         mult_type = -2 if pk.include_special else -1
         pack = self.pack(level, mult_type)
-        e0e1 = self.rng.discrete_gaussian(repeats=2)
-        v = self.rng.randint(amax=2, shift=0, repeats=1)
+        e0e1 = self._cols(self.rng.discrete_gaussian(repeats=2))
+        v = self._cols(self.rng.randint(amax=2, shift=0, repeats=1))
         dc = torch.zeros_like(pack.q)
-        ct0, ct1 = _encrypt_core(pt, dc, e0e1[0:1], e0e1[1:2], v,
+        ct0, ct1 = _encrypt_core(self._cols(pt), dc, e0e1[0:1], e0e1[1:2], v,
                                  *self._pk_at(pk, level), pack)
         return DataStruct((ct0, ct1), mult_type == -2, False, False,
                           types.origins["ct"], level, self.hash)
@@ -841,7 +885,7 @@ class CkksEngine:
                                      pack)
         else:
             raise errors.NotMatchType(origin=ct.origin, to="ct or ctt")
-        return self._gather(pt, ct.level, -1)
+        return self._gather_full(pt, ct.level, -1)
 
     def _sk_at(self, sk: DataStruct, level):
         """The secret key in the ordinary layout of ``level``."""
@@ -899,13 +943,13 @@ class CkksEngine:
             pt = pt.copy()
             pt[0] -= dc_integral
             dc_scale = int(dc_integral) * self.int_scale
-            dc = self._tensor([dc_scale % qi for qi in q_lvl])
+            dc = self._dc(self._tensor([dc_scale % qi for qi in q_lvl]))
             pt = self.rng.randround(pt * self.scale)
-        pt = torch.from_numpy(np.asarray(pt, dtype=np.int64)[None, :]).to(
-            self.torch_device)
+        pt = self._cols(torch.from_numpy(
+            np.asarray(pt, dtype=np.int64)[None, :]).to(self.torch_device))
 
-        e0e1 = self.rng.discrete_gaussian(repeats=2)
-        v = self.rng.randint(amax=2, shift=0, repeats=1)
+        e0e1 = self._cols(self.rng.discrete_gaussian(repeats=2))
+        v = self._cols(self.rng.randint(amax=2, shift=0, repeats=1))
         ct0, ct1 = _encrypt_core(pt, dc, e0e1[0:1], e0e1[1:2], v,
                                  *self._pk_at(pk, level), pack)
         return DataStruct((ct0, ct1), mult_type == -2, False, False,
@@ -981,13 +1025,18 @@ class CkksEngine:
             for i, p in enumerate(parts)])                # [P, C_sp, N]
         k0, k1, at = self._ksk_at(ksk, level)
         part_off = parts[0].part_id
-        route = butterfly_switch_route(self.ctx.logN, self.use_split_switch)
+        route = butterfly_switch_route(self.ctx.logN, self.use_split_switch,
+                                       self.coef_shards > 1)
         if route == "fused":
             d0, d1 = cuda_ntt.ntt_mulacc(ext, k0, k1, pack_sp.plan, at,
                                          part_off)
         elif route == "split":
+            # On a coefficient shard #3 runs on the shard's columns with
+            # its local plan (moduli, length).
+            plan = pack_sp.plan if pack_sp.coef is None \
+                else pack_sp.coef.local
             d0, d1 = cuda_ntt.ksk_mulacc(ops.ntt(ext, pack_sp), k0, k1,
-                                         pack_sp.plan, at, part_off)
+                                         plan, at, part_off)
         else:
             P, C_sp = len(parts), pack_sp.q.shape[0]
             ext = ops.ntt(ext, pack_sp)
@@ -1000,11 +1049,16 @@ class CkksEngine:
                 d0 = ops.mont_add(d0, t0[p], pack_sp)
                 d1 = ops.mont_add(d1, t1[p], pack_sp)
         d = ops.intt_reduce(torch.stack([d0, d1]), pack_sp)
+        return self._mod_down(d, level)
+
+    def _mod_down(self, d, level):
+        """``_mod_down_shoup`` of the switch's [..., C_sp, n] words of
+        ``level``; on a mesh from the gathered rows (this rank's ordinary
+        rows and the special rows, from every rank)."""
         if self.mesh is None:
-            return _mod_down_shoup(d, pack_sp, self.pack(level, -1),
-                                   self.PiWs[level], self.bp_sp[level][0],
-                                   self.num_special)
-        # This rank's ordinary rows and the special rows, from every rank.
+            return _mod_down_shoup(d, self.pack(level, -2),
+                                   self.pack(level, -1), self.PiWs[level],
+                                   self.bp_sp[level][0], self.num_special)
         idx, pack_md, piws, bp = self._mod_down_tables(level)
         return _mod_down_shoup(self._gather(d, level, -2)[..., idx, :],
                                pack_md, self.pack(level, -1), piws, bp,
@@ -1056,15 +1110,20 @@ class CkksEngine:
         """The key stacks and the row of the level's first channel in them:
         the stacks and ``level`` on one device; on a mesh this rank's rows
         of the level's with-special layout (a gather the first time a key
-        meets a level, then kept) and 0."""
+        meets a level, then kept) and 0. A Shoup-form half is a (value,
+        quotient) pair, each cut alike."""
         k0, k1 = self._ksk_stacked(ksk)
         if self.mesh is None or level == 0:
             return k0, k1, level
         key = (ksk, level)
+
+        def fit(k):
+            if isinstance(k, tuple):
+                return tuple(fit(t) for t in k)
+            return self._fit(k, (0, -2), (level, -2)).contiguous()
+
         if key not in self._ksk_level_cache:
-            self._ksk_level_cache[key] = tuple(
-                self._fit(k, (0, -2), (level, -2)).contiguous()
-                for k in (k0, k1))
+            self._ksk_level_cache[key] = (fit(k0), fit(k1))
             if len(self._ksk_level_cache) > 16:
                 self._ksk_level_cache.popitem(last=False)
         self._ksk_level_cache.move_to_end(key)
@@ -1095,7 +1154,8 @@ class CkksEngine:
         """Per-level scalars of the fused switch: the extension terms
         [P, max(A-1, 1), 3, C_sp] ((w, wp, cadj) per part, term and
         channel, zero past a part's alpha-1 terms), the first term's offset
-        correction [C_sp] and the mod-down steps [n_sp, 2, C_sp]."""
+        correction [C_sp] and the mod-down steps [n_sp, 2, C_sp]; on a mesh
+        over this rank's rows of the with-special layout."""
         if level not in self._mxu_switch_cache:
             parts = self.ntt.parts(level)
             C_sp = self.ntt.num_channels(level, -2)
@@ -1107,8 +1167,12 @@ class CkksEngine:
                     terms[pi, i] = torch.stack(
                         [t[level:level + C_sp] for t in sh])
             piw = torch.stack([torch.stack(wp) for wp in self.PiWs[level]])
-            self._mxu_switch_cache[level] = (terms, self.bp_sp[level][1],
-                                             piw)
+            off0 = self.bp_sp[level][1]
+            if self.mesh is not None:
+                rel = self._index(self._offsets(level, -2, level))
+                terms, off0, piw = (t.index_select(-1, rel).contiguous()
+                                    for t in (terms, off0, piw))
+            self._mxu_switch_cache[level] = (terms, off0, piw)
         return self._mxu_switch_cache[level]
 
     def _switch_mxu(self, a, ksk: DataStruct, level: int):
@@ -1116,12 +1180,16 @@ class CkksEngine:
         state of each part, zero-padded to A rows and stacked [P, A, N],
         goes through the switch kernels (extension, transform, key
         products, inverse), which also fold in the mod-down on the
-        ``switch_route`` that does; else the Shoup mod-down follows.
+        ``switch_route`` that does; else the Shoup mod-down follows. On a
+        mesh every rank runs the kernels on its rows of the with-special
+        layout from the gathered state, then the gathered mod-down.
 
         A ciphertext batch a [B, C, N] runs as B segments of P parts
         ([B*P, A, N], b-major) through one dispatch of the same kernels;
         (d0, d1) are then [B, C, N] each."""
         parts = self.ntt.parts(level)
+        # Every part's channels on every rank of a mesh.
+        a = self._gather(a, level, -1)
         A = max(p.alpha for p in parts)
         zero = torch.zeros_like(a[..., 0:1, :])
         st = torch.stack([
@@ -1131,20 +1199,19 @@ class CkksEngine:
         seg = None if a.dim() == 2 else len(parts)
         st = st.reshape(-1, A, a.shape[-1])
         terms, off0, piw = self._mxu_switch_tables(level)
-        k0, k1 = self._ksk_stacked(ksk)
+        k0, k1, at = self._ksk_at(ksk, level)
         pack_sp = self.pack(level, -2)
         part_off = parts[0].part_id
-        if switch_route(self.ctx.logN, self.use_shoup_ksk) == "mxu_switch":
+        if switch_route(self.ctx.logN, self.use_shoup_ksk,
+                        self.mesh is not None) == "mxu_switch":
             d = cuda_mxu.dispatch_switch(st, terms, off0, piw, k0, k1,
-                                         pack_sp.mxu, level, part_off,
+                                         pack_sp.mxu, at, part_off,
                                          self.num_special, parts=seg)
             C = self.ntt.num_channels(level, -1)
             return d[0, ..., :C, :], d[1, ..., :C, :]
         d = cuda_mxu.dispatch_switch_inv(st, terms, off0, k0, k1, pack_sp.mxu,
-                                         level, part_off, parts=seg)
-        d = _mod_down_shoup(d, pack_sp, self.pack(level, -1),
-                            self.PiWs[level], self.bp_sp[level][0],
-                            self.num_special)
+                                         at, part_off, parts=seg)
+        d = self._mod_down(d, level)
         return d[0], d[1]
 
     # -- rescale / mult ----------------------------------------------------------
@@ -1394,8 +1461,9 @@ class CkksEngine:
         if self.norm == "backward":
             scaled *= self.ctx.N
         scaled *= self.int_scale
-        vals = self._tensor([scaled % qi
-                             for qi in self.ntt.q_rows(ct.level, -1)])
+        vals = self._dc(self._tensor([scaled % qi
+                                      for qi in self.ntt.q_rows(ct.level,
+                                                                -1)]))
         d0 = _add_dc_core(ct.data[0], vals, self.pack(ct.level, -1))
         return ct._replace(data=(d0,) + tuple(ct.data[1:]))
 
@@ -1420,13 +1488,13 @@ class CkksEngine:
         """ct * m: m encoded at the scale of the next level, the negacyclic
         product, then the rescale."""
         m = np.array(m) * np.sqrt(self.deviations[ct.level + 1])
-        pt = self.encode(m, 0)
+        pt = self._cols(self.encode(m, 0))
         d0, d1 = _mc_mult_core(pt, ct.data[0], ct.data[1],
                                self.pack(ct.level, -1))
         return self.rescale(ct._replace(data=(d0, d1)))
 
     def mc_add(self, m, ct: DataStruct):
-        pt = self.encode(m, ct.level)
+        pt = self._cols(self.encode(m, ct.level))
         d0 = _mc_add_core(pt, ct.data[0], self.pack(ct.level, -1))
         return ct._replace(data=(d0,) + tuple(ct.data[1:]))
 
@@ -1444,20 +1512,30 @@ class CkksEngine:
 
     # -- rotations and conjugation ---------------------------------------------------
 
-    def _perm_on_device(self, key, perm_data):
-        """A permutation's gather index (int64) and sign mask on the
-        engine's device, kept for the engine's life."""
-        if key not in self._perm_device_cache:
+    def _perm(self, perm_key, perm_data):
+        """The signed permutation of a Galois automorphism as a function of
+        words [..., C, n]: its gather index (int64) and sign mask on the
+        engine's device are kept for the engine's life. On a coef axis
+        they are cut to this rank's columns, and the function gathers the
+        words along ``coef`` first: output column j reads input column
+        gather[j], which another shard may hold."""
+        if perm_key not in self._perm_device_cache:
             gather, neg = perm_data
-            self._perm_device_cache[key] = (
-                torch.from_numpy(gather.astype(np.int64)).to(
-                    self.torch_device),
-                torch.from_numpy(neg).to(self.torch_device))
-        return self._perm_device_cache[key]
+            self._perm_device_cache[perm_key] = tuple(
+                self._cols(torch.from_numpy(t).to(self.torch_device))
+                for t in (gather.astype(np.int64), neg))
+        gather, neg = self._perm_device_cache[perm_key]
+
+        def perm(x):
+            if self.coef_shards > 1:
+                x = comm.all_gather(x, self.mesh, "coef", dim=-1)
+            return ops.apply_signed_perm(x, gather, neg)
+
+        return perm
 
     def _rotated_sk(self, sk: DataStruct, perm_key, perm_data) -> DataStruct:
-        gather, neg = self._perm_on_device(perm_key, perm_data)
-        rotated = _rotate_sk_core(self._sk_at(sk, 0), gather, neg,
+        rotated = _rotate_sk_core(self._sk_at(sk, 0),
+                                  self._perm(perm_key, perm_data),
                                   self.pack(0, -1))
         return DataStruct(rotated, False, True, True, types.origins["sk"], 0,
                           self.hash)
@@ -1487,9 +1565,9 @@ class CkksEngine:
                           self.hash)
 
     def _permute_ct(self, ct: DataStruct, perm_key, perm_data) -> DataStruct:
-        gather, neg = self._perm_on_device(perm_key, perm_data)
+        perm = self._perm(perm_key, perm_data)
         pack = self.pack(ct.level, -1)
-        return ct._replace(data=tuple(_rotate_ct_core(d, gather, neg, pack)
+        return ct._replace(data=tuple(_rotate_ct_core(d, perm, pack)
                                       for d in ct.data))
 
     def _rotate_switch(self, ct: DataStruct, rotk: DataStruct, perm_key,
@@ -1499,8 +1577,8 @@ class CkksEngine:
         add."""
         level = ct.level
         pack = self.pack(level, -1)
-        gather, neg = self._perm_on_device(perm_key, perm_data)
-        r = _rotate_ct_core(torch.stack(ct.data[:2]), gather, neg, pack)
+        r = _rotate_ct_core(torch.stack(ct.data[:2]),
+                            self._perm(perm_key, perm_data), pack)
         s0, s1 = self._switch(r[1], rotk, level)
         c0 = ops.reduce_2q(ops.mont_add(r[0], s0, pack), pack)
         return DataStruct((c0, s1), ct.include_special, ct.ntt_state,
@@ -1659,7 +1737,7 @@ class CkksEngine:
         for pct in pcts[1:]:
             pt = ops.mont_add(pt, pct, pack)
         scaled = self._final_rescale_signed(
-            self._gather(ops.reduce_2q(pt, pack), level, -1), level)
+            self._gather_full(ops.reduce_2q(pt, pack), level, -1), level)
         return self.decode(scaled, level=level)
 
     def multiparty_create_key_switching_key(self, sk_src: DataStruct,
@@ -1753,8 +1831,9 @@ class CkksEngine:
 
     def gather(self, text: DataStruct) -> DataStruct:
         """The single-device engine's words of ``text``: on a mesh every
-        rank's rows gathered to full width (on every rank); else ``text``
-        itself. ``parallel.shard_datastruct`` is the inverse."""
+        rank's rows and columns gathered to full width (on every rank);
+        else ``text`` itself. ``parallel.shard_datastruct`` is the
+        inverse."""
         if self.mesh is None:
             return text
         lay = (text.level, -2 if text.include_special else -1)
@@ -1764,7 +1843,7 @@ class CkksEngine:
                 return self.gather(d)
             if isinstance(d, (tuple, list)):
                 return type(d)(full(x) for x in d)
-            return self._gather(d, *lay)
+            return self._gather_full(d, *lay)
 
         return text._replace(data=full(text.data))
 

@@ -101,6 +101,13 @@ class MxuPlan:
         return MxuPlan(self.R, self.S, self.dA, self.dB, self.split,
                        **{f: t[start:stop] for f, t in self.tensors().items()})
 
+    def select(self, idx):
+        """The plan of the channels idx (an int64 index tensor, repeats
+        allowed; copies)."""
+        return MxuPlan(self.R, self.S, self.dA, self.dB, self.split,
+                       **{f: t.index_select(0, idx)
+                          for f, t in self.tensors().items()})
+
 
 def _mulmod(x, w, wp, q):
     """x * w mod q, canonical [0, q), for x in [0, q): a Shoup product

@@ -14,10 +14,14 @@ channels).
 Channel layout: the global prime order is q = [scales..., base,
 specials...]. At level l the alive channels are the contiguous suffix
 q[l:]; mult_type -1 excludes the trailing special primes, -2 includes them.
-On a mesh (``shard``: this rank's index and the ``rns`` axis size) a
-layout's channel axis is padded to a multiple of the axis size by
-repeating its last channel, and a rank's packs hold its rows of it
-(``rows``; ``liberate_tpu_torch.parallel``).
+On a mesh (``mesh``) a layout's channel axis is padded to a multiple of
+the ``rns`` axis size by repeating its last channel, and a rank's packs
+hold its rows of it (``rows``; ``liberate_tpu_torch.parallel``): in the
+tensor-core domain each width group its rows cut from the group's tables
+(copies where the padding repeats a channel). On a mesh with a ``coef``
+axis (butterfly domain only) a rank's level packs carry the
+``CoefShardPlan`` of its rows (``coef``) instead of a whole-length plan,
+and the ``ops`` transforms run the coefficient-sharded ones.
 """
 
 from typing import NamedTuple, Optional
@@ -26,6 +30,7 @@ import torch
 
 from . import mxu_ntt, u64
 from .cuda_mxu import MxuGroup
+from ..parallel.coef_shard import make_coef_plan
 from ..parallel.sharding import shard_rows
 from .cuda_ntt import NttPlan, make_plan
 from .rns_partition import RnsPartition
@@ -46,6 +51,7 @@ class LevelPack(NamedTuple):
     Rs_scale: torch.Tensor
     plan: Optional[NttPlan] = None   # butterfly kernel tables
     mxu: Optional[tuple] = None      # MxuGroups of the tensor-core kernels
+    coef: Optional[object] = None    # CoefShardPlan on a coef mesh
 
     def mont(self):
         """(ql, qh, kl, kh) as [C, 1] columns for montmul on [..., C, N]."""
@@ -73,11 +79,25 @@ class PartPlan(NamedTuple):
 
 
 class NttContext:
-    def __init__(self, ctx, device, use_mxu=False, shard=None):
+    """On a mesh (``liberate_tpu_torch.parallel.Mesh``) the context holds
+    one rank's rows of the ``rns`` axis and, on a mesh with a ``coef`` axis,
+    its columns; the ranks of one process share the tensor-core tables
+    (``Mesh.shared``)."""
+
+    def __init__(self, ctx, device, use_mxu=False, mesh=None):
+        self.coef_sharded = mesh is not None and mesh.axis_size("coef") > 1
+        if use_mxu and self.coef_sharded:
+            raise ValueError(
+                "the tensor-core domain runs on an rns mesh only: a mesh "
+                "with a coef axis shards the butterfly transforms "
+                "(use_mxu_ntt=False, or make_mesh(n))")
         self.ctx = ctx
         self.device = torch.device(device)
         self.use_mxu = use_mxu
-        self.shard = shard
+        self.mesh = mesh
+        # (this rank's index, the size) of the rns axis.
+        self.shard = None if mesh is None else (mesh.axis_index("rns"),
+                                                mesh.axis_size("rns"))
         self.num_ordinary_primes = ctx.num_scales + 1
         self.num_special_primes = ctx.num_special_primes
         self.num_levels = ctx.num_scales + 1
@@ -88,8 +108,12 @@ class NttContext:
         self._build_master_tables()
         # Width-group plans ((start, stop, MxuPlan), ...) over global
         # channels, in the tensor-core domain only.
-        self.mxu_groups = (mxu_ntt.group_plans(ctx, self.device)
-                           if use_mxu else None)
+        self.mxu_groups = None
+        if use_mxu:
+            def build():
+                return mxu_ntt.group_plans(ctx, self.device)
+            self.mxu_groups = (build() if mesh is None else mesh.shared(
+                ("mxu_groups", id(ctx), str(self.device)), build))
         self._level_packs = {}
         self._part_plans = {}
 
@@ -151,35 +175,57 @@ class NttContext:
         m = self._master
         plan = mxu = None
         if with_plan and self.use_mxu:
-            mxu = tuple(
-                MxuGroup(max(gs, start) - start, min(ge, stop) - start,
-                         p.slice(max(gs, start) - gs, min(ge, stop) - gs))
-                for gs, ge, p in self.mxu_groups
-                if min(ge, stop) > max(gs, start))
+            mxu = self._mxu_groups(list(range(start, stop)))
         elif with_plan:
             plan = m.plan.slice(start, stop)
-        return LevelPack(*(t[start:stop] for t in m[:-2]), plan=plan,
+        return LevelPack(*(t[start:stop] for t in m[:-3]), plan=plan,
                          mxu=mxu)
+
+    def _mxu_groups(self, rows):
+        """The width groups of the ascending global channels ``rows``: for
+        each group they meet, its run of them, with the group's tables cut
+        to that run (views where the run is contiguous; copies where the
+        padding repeats a channel)."""
+        out = []
+        for gs, ge, p in self.mxu_groups:
+            pos = [i for i, r in enumerate(rows) if gs <= r < ge]
+            if not pos:
+                continue
+            sel = [rows[i] - gs for i in pos]
+            if sel == list(range(sel[0], sel[-1] + 1)):
+                cut = p.slice(sel[0], sel[-1] + 1)
+            else:
+                cut = p.select(torch.tensor(sel, device=self.device))
+            out.append(MxuGroup(pos[0], pos[-1] + 1, cut))
+        return tuple(out)
 
     def make_pack_rows(self, rows, with_plan=True) -> LevelPack:
         """The pack of the global channels ``rows``: views where they are
-        contiguous, else copies (butterfly domain only)."""
+        contiguous, else copies."""
         if rows == list(range(rows[0], rows[-1] + 1)):
             return self.make_pack(rows[0], rows[-1] + 1, with_plan)
-        if self.use_mxu:
-            raise ValueError("the tensor-core domain takes contiguous "
-                             "channel ranges only")
         sel = torch.tensor(rows, device=self.device)
         m = self._master
-        return LevelPack(*(t.index_select(0, sel) for t in m[:-2]),
-                         plan=m.plan.select(sel) if with_plan else None)
+        plan = mxu = None
+        if with_plan and self.use_mxu:
+            mxu = self._mxu_groups(rows)
+        elif with_plan:
+            plan = m.plan.select(sel)
+        return LevelPack(*(t.index_select(0, sel) for t in m[:-3]),
+                         plan=plan, mxu=mxu)
 
     def level_pack(self, level: int = 0, mult_type: int = -1) -> LevelPack:
-        """The pack of a layout: this rank's rows of it on a mesh."""
+        """The pack of a layout: this rank's rows of it on a mesh, with
+        their ``CoefShardPlan`` on a coef mesh."""
         key = (level, mult_type)
         if key not in self._level_packs:
-            self._level_packs[key] = self.make_pack_rows(
-                self.rows(level, mult_type))
+            rows = self.rows(level, mult_type)
+            if not self.coef_sharded:
+                pack = self.make_pack_rows(rows)
+            else:
+                pack = self.make_pack_rows(rows, with_plan=False)._replace(
+                    coef=make_coef_plan(self, self.mesh, idx=rows))
+            self._level_packs[key] = pack
         return self._level_packs[key]
 
     # -- key-switching part plans -----------------------------------------------

@@ -14,6 +14,7 @@ Every compare keeps the signedness the reference uses: ``reduce_2q``,
 
 import torch
 
+from ..parallel import coef_shard
 from . import cuda_mxu, cuda_ntt, u64
 
 __all__ = [
@@ -127,7 +128,9 @@ def fit_channels(d, W):
 # A pack carries the tables of one domain: ``plan`` for the butterfly
 # kernels (bit-reversed NTT domain) or ``mxu`` for the tensor-core kernels
 # (natural order), as the JAX package's ops route by pack.pallas /
-# pack.mxu. The domains never mix: a pack without tables raises.
+# pack.mxu; on a mesh with a ``coef`` axis ``coef``, the butterfly domain's
+# coefficient-sharded transforms (as the JAX ops route by pack.coef). The
+# domains never mix: a pack without tables raises.
 
 
 def _plan(pack):
@@ -140,6 +143,8 @@ def ntt(a, pack):
     """Forward negacyclic NTT (butterfly: natural-order input, bit-reversed
     output; tensor-core: natural order), preserving the Montgomery
     domain."""
+    if pack.coef is not None:
+        return coef_shard.ntt_coef_sharded(a, pack.coef)
     if pack.mxu is not None:
         return cuda_mxu.dispatch(a, pack.mxu)
     return cuda_ntt.ntt_fwd(a, _plan(pack))
@@ -147,42 +152,50 @@ def ntt(a, pack):
 
 def enter_ntt(a, pack):
     """Montgomery enter (x R) fused with the forward NTT."""
+    if pack.coef is not None:
+        return coef_shard.ntt_coef_sharded(a, pack.coef, pre_enter=True)
     if pack.mxu is not None:
         return cuda_mxu.dispatch(a, pack.mxu, enter=True)
     return cuda_ntt.ntt_fwd(a, _plan(pack), pre_enter=True)
 
 
+def _inverse(a, pack, post_exit=False, post_reduce=False, no_norm=False):
+    """The inverse transform of the pack's domain in one of its modes."""
+    if pack.coef is not None:
+        return coef_shard.intt_coef_sharded(
+            a, pack.coef, post_exit=post_exit, post_reduce=post_reduce,
+            no_norm=no_norm)
+    if pack.mxu is not None:
+        if no_norm:
+            raise ValueError("intt_no_norm runs in the butterfly domain")
+        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=post_exit,
+                                 post_reduce=post_reduce)
+    return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=post_exit,
+                            post_reduce=post_reduce, no_norm=no_norm)
+
+
 def intt(a, pack):
     """Inverse NTT with the N^-1 normalisation."""
-    if pack.mxu is not None:
-        return cuda_mxu.dispatch(a, pack.mxu, inverse=True)
-    return cuda_ntt.ntt_inv(a, _plan(pack))
+    return _inverse(a, pack)
 
 
 def intt_exit(a, pack):
     """Inverse NTT fused with the Montgomery exit (x R^-1)."""
-    if pack.mxu is not None:
-        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=True)
-    return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=True)
+    return _inverse(a, pack, post_exit=True)
 
 
 def intt_exit_reduce(a, pack):
-    if pack.mxu is not None:
-        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=True,
-                                 post_reduce=True)
-    return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=True, post_reduce=True)
+    return _inverse(a, pack, post_exit=True, post_reduce=True)
 
 
 def intt_no_norm(a, pack):
     """Inverse NTT without the N^-1 normalisation (lazy [0, 2q) words; the
     coefficient-sharded inverse normalises after its cross-shard stages).
     Butterfly domain only."""
-    return cuda_ntt.ntt_inv(a, _plan(pack), no_norm=True)
+    return _inverse(a, pack, no_norm=True)
 
 
 def intt_reduce(a, pack):
     """Inverse NTT + N^-1 + reduce to [0, q), with NO Montgomery exit (the
     Shoup-form key switch: its products are already plain)."""
-    if pack.mxu is not None:
-        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, post_reduce=True)
-    return cuda_ntt.ntt_inv(a, _plan(pack), post_reduce=True)
+    return _inverse(a, pack, post_reduce=True)

@@ -17,12 +17,14 @@ In the butterfly network (twiddle of stage s and block b at bank entry
    kernels' range (8-17): a plan for CUDA tensors with a shorter shard is
    refused; the wrappers take their plain twins for CPU tensors only;
 3. the inverse multiplies by the global N^-1 (N^-1 R^-1 with the
-   Montgomery exit) after its cross-shard stages, then reduces if asked.
+   Montgomery exit) after its cross-shard stages, then reduces if asked;
+   with ``no_norm`` it stops after them (lazy [0, 2q) words).
 
 A cross stage is the single-device twin's stage on the same words (the
 Shoup product, the lazy [0, 2q) conditional subtracts), so the results are
 the single-device transforms' words (``ops.ntt``, ``enter_ntt``, ``intt``,
-``intt_exit``, ``intt_exit_reduce``). Batch axes before [C, L] pass through.
+``intt_exit``, ``intt_exit_reduce``, ``intt_reduce``, ``intt_no_norm``).
+Batch axes before [C, L] pass through.
 On a 2-D (``rns``, ``coef``) mesh each rank also holds only its rows of the
 channels (``rns_axis``); channels are independent, so that adds no
 communication.
@@ -161,11 +163,13 @@ def ntt_coef_sharded(a, plan: CoefShardPlan, pre_enter=False):
 
 
 def intt_coef_sharded(a, plan: CoefShardPlan, post_exit=False,
-                      post_reduce=False):
+                      post_reduce=False, no_norm=False):
     """Inverse NTT of this rank's shard a [..., C, L] with the global N^-1
     normalisation (``ops.intt``); ``post_exit`` fuses the Montgomery exit
     (``ops.intt_exit``), ``post_reduce`` the reduce to [0, q)
-    (``ops.intt_exit_reduce`` with both)."""
+    (``ops.intt_reduce``; ``ops.intt_exit_reduce`` with both); ``no_norm``
+    none of them (``ops.intt_no_norm``)."""
+    cuda_ntt._check_no_norm(no_norm, post_exit, post_reduce)
     x = cuda_ntt.ntt_inv(a, plan.local, no_norm=True)
     q = _col(plan.q)
     q2 = 2 * q
@@ -178,6 +182,8 @@ def intt_coef_sharded(a, plan: CoefShardPlan, post_exit=False,
             x = u64.shoup_mul(_cond_sub(other + q2 - x, q2), w, wp, q)
         else:
             x = _cond_sub(x + other, q2)
+    if no_norm:
+        return x
     w, wp = plan.ninv_exit if post_exit else plan.ninv
     x = u64.shoup_mul(x, _col(w), _col(wp), q)
     return _cond_sub(x, q) if post_reduce else x

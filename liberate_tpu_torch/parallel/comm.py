@@ -4,7 +4,8 @@ GSPMD inserts the JAX package's collectives itself; the port calls these
 where a step needs another rank's words:
 
 - ``all_gather``: the ranks' slices of a channel axis, concatenated;
-- ``broadcast``: a tensor from one rank of the axis to all of them;
+- ``broadcast``: a tensor from one rank of the axis to all of them
+  (``broadcast_mesh``: rank 0's to every rank of the mesh);
 - ``exchange``: the paired swap with the rank ``i XOR d`` (the
   coefficient-sharded transforms' cross-shard stages);
 - ``all_sum``: an elementwise sum over the axis.
@@ -49,6 +50,15 @@ def broadcast(x, root, mesh, axis="rns"):
     with waiting(mesh.turn):
         work.wait()
     return buf.to(x.device)
+
+
+def broadcast_mesh(x, mesh):
+    """Rank 0's x on every rank of the mesh: a broadcast from index 0 along
+    each axis in turn."""
+    for axis in mesh.axis_names:
+        if mesh.axis_size(axis) > 1:
+            x = broadcast(x, 0, mesh, axis)
+    return x
 
 
 def exchange(x, partner, mesh, axis):

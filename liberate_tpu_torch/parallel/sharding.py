@@ -12,7 +12,9 @@ padded to W, the next multiple of the ``rns`` axis size, by repeating the
 last real channel ("edge" padding), and rank i holds rows
 [i W / R, (i + 1) W / R). Padded rows are computed with the constants of the
 channel they repeat, so they hold that channel's words and are never read
-back.
+back. On a mesh with a ``coef`` axis of S ranks, rank j of it also holds
+only the coefficient columns [j N / S, (j + 1) N / S) of every row
+(``coef_columns``); the channels are padded to the ``rns`` extent only.
 """
 
 import contextlib
@@ -240,6 +242,14 @@ def local_rows(mesh: Mesh, channels: int, axis_name="rns"):
                       channels)
 
 
+def coef_columns(mesh: Mesh, N: int, axis_name="coef") -> slice:
+    """The coefficient columns of this rank in an axis of N words (all of
+    them on a mesh without that axis)."""
+    L = N // mesh.axis_size(axis_name)
+    i = mesh.axis_index(axis_name)
+    return slice(i * L, (i + 1) * L)
+
+
 def pad_channels_to(x, quantum: int):
     """Pad the channel axis (-2) of ``x`` [..., C, N] up to a multiple of
     ``quantum``, repeating the last channel (edge padding)."""
@@ -252,12 +262,13 @@ def pad_channels_to(x, quantum: int):
                      dim=-2)
 
 
-def shard_poly(x, mesh: Mesh, axis_name="rns"):
+def shard_poly(x, mesh: Mesh, axis_name="rns", coef_axis="coef"):
     """This rank's rows of a full-width polynomial x [..., C, N], padded,
-    on the mesh's device."""
+    and its coefficient columns, on the mesh's device."""
     rows = rns_sharding(mesh, x.shape[-2], axis_name)
+    cols = coef_columns(mesh, x.shape[-1], coef_axis)
     x = pad_channels_to(x, mesh.axis_size(axis_name))
-    return x[..., rows, :].contiguous().to(mesh.device)
+    return x[..., rows, cols].contiguous().to(mesh.device)
 
 
 def _map(ds, fn):
@@ -271,7 +282,8 @@ def _map(ds, fn):
 def shard_datastruct(ds: DataStruct, mesh: Mesh,
                      axis_name="rns") -> DataStruct:
     """A full-width (host or single-device) DataStruct as this rank's
-    padded rows: what an engine on the mesh holds of it."""
+    padded rows and coefficient columns: what an engine on the mesh holds
+    of it (``CkksEngine.gather`` is the inverse)."""
     return _map(ds, lambda x: (shard_poly(x, mesh, axis_name) if x.dim() >= 2
                                else x.to(mesh.device)))
 

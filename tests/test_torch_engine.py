@@ -17,7 +17,8 @@ The butterfly switch core's three routes (split, fused, composed) leave
 the same mult words, and the standalone entry points (``mult(relin=False)``,
 ``relinearize``, ``square``, ``switch_key``, ``decrypt_triplet``) give the
 JAX engine's words: raw where the result ends in a reduce, mod q for the
-NTT-domain triplet.
+NTT-domain triplet. The engine on a mesh (4 ranks of an ``rns`` mesh, a
+2 x 2 and a 1 x 4 (``rns``, ``coef``) mesh) gives them too, gathered.
 """
 
 import gc
@@ -38,7 +39,7 @@ from liberate_tpu_torch import interop
 from liberate_tpu_torch.fhe import engine as port_engine
 from liberate_tpu_torch.ntt import cuda_ntt
 from liberate_tpu_torch.ntt.rns_partition import RnsPartition
-from liberate_tpu_torch.parallel import make_mesh, run_ranks
+from liberate_tpu_torch.parallel import make_mesh, make_mesh2d, run_ranks
 
 PARAMS = dict(logN=8, scale_bits=30, num_scales=8, num_special_primes=2,
               is_secured=False, seed=20260816)
@@ -135,13 +136,13 @@ def test_keys_bit_identical_mod_q(run, which):
         assert np.array_equal(jw % qc, tw % qc)
 
 
-def test_sharded_engine_equals_jax(run):
-    """The RNS-channel-sharded engine on 4 ranks (gloo threads of this
-    process; the channel axes padded to a multiple of 4) from the fixture's
-    stream steps: its gathered keys are the JAX engine's words mod q, its
-    ciphertext and mult output the JAX words raw."""
+def _mesh_engine_equals_jax(run, ranks, mesh_fn):
+    """The engine on ``ranks`` ranks (gloo threads of this process), each on
+    its mesh ``mesh_fn()``, from the fixture's stream steps: its gathered
+    keys are the JAX engine's words mod q, its ciphertext and mult output
+    the JAX words raw."""
     def body():
-        e = liberate_tpu_torch.CkksEngine(mesh=make_mesh(4), device="cpu",
+        e = liberate_tpu_torch.CkksEngine(mesh=mesh_fn(), device="cpu",
                                           **PARAMS)
         e.rng.steps[:] = run["steps0"]
         sk = e.create_secret_key()
@@ -153,10 +154,10 @@ def test_sharded_engine_equals_jax(run):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        ranks = run_ranks(4, body, device="cpu")
+        out = run_ranks(ranks, body, device="cpu")
     finally:
         torch.set_num_threads(n)
-    for *keys, ct, out in ranks:
+    for *keys, ct, out in out:
         for which in ("sk", "pk", "evk"):
             pairs, q = _canonical_pairs(run, which, keys)
             for j, t in pairs:
@@ -165,6 +166,21 @@ def test_sharded_engine_equals_jax(run):
                 assert np.array_equal(jw % qc, tw % qc), which
         _assert_words_equal(run["ct_j"], ct)
         _assert_words_equal(run["mult_j"], out)
+
+
+def test_sharded_engine_equals_jax(run):
+    """The RNS-channel-sharded engine on 4 ranks (the channel axes padded
+    to a multiple of 4) gives the JAX engine's words."""
+    _mesh_engine_equals_jax(run, 4, lambda: make_mesh(4))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_coef_mesh_engine_equals_jax(run, shape):
+    """The engine on a mesh with a coef axis, a (2 rns x 2 coef) and a
+    coefficient-only (1 x 4) one (the coefficient-sharded transforms, the
+    split switch on a shard's columns), gives the JAX engine's words."""
+    _mesh_engine_equals_jax(run, shape[0] * shape[1],
+                            lambda: make_mesh2d(*shape))
 
 
 def test_encorypt_bit_identical(run):

@@ -43,10 +43,12 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "stage_variants.py",
-                                    "bfly_variants.py"])
+                                    "bfly_variants.py",
+                                    "tests/torch_multihost_worker.py"])
 def test_card_scripts_name_no_jax(script):
-    """The scripts run on the card import neither JAX nor the JAX package;
-    they name its kernels only as file:line strings."""
+    """The scripts run on the card (the multi-process worker also on the
+    CPU) import neither JAX nor the JAX package; they name its kernels only
+    as file:line strings."""
     text = (PKG.parent / script).read_text()
     assert "liberate_tpu_torch" in text
     assert not _NAMES_JAX.search(text)

@@ -20,7 +20,9 @@ part for the scale primes and (8, 8) for the base and special primes.
   inverse, and the fused switch in both modes): its output is bit-identical
   to the port's ``mult`` on each switch route (folded; unfolded, as at
   logN 16, forced through ``engine.FOLD_MAX_LOGN``; Montgomery-form key,
-  ``use_shoup_ksk=False``), which agree with two special primes.
+  ``use_shoup_ksk=False``), which agree with two special primes; and the
+  mult of the port's tensor-core engine on an rns mesh of 2 and 4 ranks,
+  in both key forms, is those words mod q.
 
 The JAX engine never runs keygen or encryption here: in interpret mode they
 cost tens of seconds.
@@ -49,6 +51,7 @@ from liberate_tpu_torch.fhe import engine as port_engine
 from liberate_tpu_torch.fhe.context.prim_test import miller_rabin
 from liberate_tpu_torch.ntt import cuda_mxu, ops
 from liberate_tpu_torch.ntt import mxu_ntt as port_mxu_ntt
+from liberate_tpu_torch.parallel import make_mesh, run_ranks
 
 PARAMS = dict(logN=8, scale_bits=40, num_scales=3, num_special_primes=2,
               is_secured=False)
@@ -275,19 +278,55 @@ def _to_jax(ds):
     return build(*interop.to_reference_arrays(ds))
 
 
-def test_mult_bit_identical_to_jax_mxu_kernels(port):
-    """The slice: the JAX engine on its MXU kernel path multiplies the
-    port's ciphertext with the port's evk; the words equal the port's, on
-    each switch route."""
+@pytest.fixture(scope="module")
+def jax_mult(port):
+    """The JAX engine on its MXU kernel path multiplies the port's
+    ciphertext with the port's evk."""
     with _MxuKernelPath():
         je = liberate_tpu.CkksEngine(seed=SEED, **PARAMS)
         assert je._mxu_fused_switch()
         ct = _to_jax(port["ct"])
-        out = je.mult(ct, ct, _to_jax(port["evk"]))
+        return je.mult(ct, ct, _to_jax(port["evk"]))
+
+
+def test_mult_bit_identical_to_jax_mxu_kernels(port, jax_mult):
+    """The slice: the JAX engine's mult of the port's ciphertext and evk
+    equals the port's words, on each switch route."""
+    out = jax_mult
     assert out.level == port["mult"].level == 1
     for route in ("mult", "unfolded", "mont"):
         for j, t in zip(out.data, port[route].data):
             assert np.array_equal(_words(j), t.numpy()), route
+
+
+@pytest.mark.parametrize("shoup_ksk", [True, False], ids=["shoup", "mont"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_mult_equals_jax_mxu_kernels(port, jax_mult, n, shoup_ksk):
+    """The tensor-core engine on an rns mesh of n ranks (gloo threads of
+    this process; C0_sp = 6 padded to 8 on 4), in either key form, makes
+    the fixture's keys and ciphertext from the same seed; its gathered mult
+    (the rank's unfolded switch, then the gathered mod-down) is the JAX
+    engine's words mod q."""
+    def body():
+        e = liberate_tpu_torch.CkksEngine(
+            mesh=make_mesh(n), device="cpu", use_mxu_ntt=True,
+            use_shoup_ksk=shoup_ksk, seed=SEED, **PARAMS)
+        sk = e.create_secret_key()
+        pk, evk = e.create_public_key(sk), e.create_evk(sk)
+        ct = e.encorypt(port["m"], pk)
+        return e.gather(e.mult(ct, ct, evk))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        outs = run_ranks(n, body, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    q = port["te"].pack(1, -1).q.numpy()[:, None]
+    for out in outs:
+        assert out.level == jax_mult.level
+        for j, t in zip(jax_mult.data, out.data):
+            assert np.array_equal(_words(j) % q, t.numpy() % q)
 
 
 def test_mult_decrode_error(port):

@@ -155,7 +155,7 @@ def test_ntt_context_rows_equal_local_rows():
 
     def body():
         mesh = make_mesh(4)
-        nc = NttContext(ctx, "cpu", shard=(mesh.axis_index("rns"), 4))
+        nc = NttContext(ctx, "cpu", mesh=mesh)
         return nc.rows(1, -2), local_rows(mesh, C), nc.level_pack(1, -2)
 
     for rows, want, pack in _ranks(4, body):
