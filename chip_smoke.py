@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compile-yardstick]
 
-1. Prints the card's name and power limit (nvidia-smi).
+1. Prints the card's name and power limit (nvidia-smi) and the host CPU.
 2. Builds the port's CUDA kernels from ``liberate_tpu_torch/csrc`` with
    nvcc for sm_90a (into ``build/liberate_tpu_torch``), one nvcc per
    source, all started together; prints ptxas's registers, stack and
@@ -15,8 +15,12 @@
    against ``cuda_ntt.mulacc_geometry`` at logN 8-15 and K = 1-8 (printing
    K, the threads and the shared bytes per logN, and the part groups at
    the silver and bronze shapes).
-3. Times the tensor-core (MXU) table build at silver, without and with
-   the disk cache.
+3. Builds the silver and gold contexts cold on the native host math
+   (``liberate_tpu_torch/native``) and from the cache (``context_start``;
+   at silver also its pure-Python twin, which must equal it field for
+   field; at gold every prime checked in Python), and times the
+   tensor-core (MXU) table build at silver, without and with the disk
+   cache.
 4. Holds every kernel against its plain PyTorch twin on the same CUDA
    inputs, bit for bit, and times both with CUDA events beside the
    kernel's bound, at the shapes of the multiply: at silver the butterfly
@@ -126,11 +130,16 @@
    #9 at rank 0's rows against their twins; ``multiprocess_phase``, two
    processes of a gloo ``torch.distributed`` job on ``cuda:0``
    (``tests/torch_multihost_worker.py``: the sharded engine across them,
-   and threshold decryption with one party a process), their wall.
+   and threshold decryption with one party a process), their wall. Then
+   the four examples at silver (``examples_phase``: ``ckks_engine``,
+   ``evaluators``, ``multiparty`` and ``multichip`` on 4 ranks as threads
+   on the card), each with the counters zeroed: every error they print <
+   1e-4, the kernels of their routes launched and no other, their wall.
 7. Bronze (logN 14, one special prime) and platinum (logN 17, S = 512,
    six special primes), one preset after the other, each preset's
-   engines freed before the next: the engines' start (the context cold
-   and from the cache; the tensor-core tables built, with the build's
+   engines freed before the next: the engines' start (the context as in
+   3, at bronze with its twin, at platinum with the primes checked; the
+   tensor-core tables built, with the build's
    peak device memory, written to the cache and read from it); every
    kernel of the preset's multiply against its twin at its level-1
    shapes (the butterfly #1-#3, #4 at bronze, the tensor-core transforms
@@ -143,8 +152,9 @@
    the butterfly and tensor-core paths ``ops_phase`` untimed; the segment
    rows #11 at bronze (B = 4) and #10 at platinum (B = 2); the batched
    mult untimed (bronze Bct = 4, platinum Bct = 2) with its peak memory.
-8. Prints the timed phases (the three this slice added separately) and
-   the script's time, the card line, the kernels' JSON line and, last, the
+8. Prints the timed phases, each preset's cold context beside the
+   pure-Python one (the card line and the host CPU beside them) and the
+   script's time, the card line, the kernels' JSON line and, last, the
    result line.
 
 ``--split-only PRESET`` runs only the split by launch at the preset; the
@@ -201,6 +211,11 @@ COEF_SHARD = "gold coefficient-sharded transforms"
 MESH2D = "silver 2-D mesh engine"
 MXU_MESH = "silver tensor-core engine on an rns mesh"
 MULTIPROCESS = "silver two-process job"
+EXAMPLES = "silver examples"
+# The pure-Python context's cold time at gold and platinum in earlier runs of
+# this script on an H100's host; this run builds its twin only at bronze and
+# silver.
+PLAIN_COLD_EARLIER = {"gold": "15-20 s", "platinum": "44.20 s"}
 # Ranks of the silver rns meshes; the 2-D meshes (rns, coef) of 4 ranks.
 MESH_RANKS = 4
 MESH2D_SHAPES = ((2, 2), (1, 4))
@@ -2324,11 +2339,130 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
                    "liberate_tpu_torch/csrc/" + file, replaces)
 
 
-def engine_start(preset, dev):
-    """The start of the preset's engines, in parts: the context built cold
-    (its cached pickle not read, then rewritten) and read from the cache;
-    the tensor-core tables built without the cache (with the build's peak
-    device memory), built and written to the cache, and read from it."""
+def _fields_differ(a, b):
+    """The fields (pickled ``__dict__`` entries) of two contexts that
+    differ; arrays must match in dtype and shape too."""
+    import numpy as np
+
+    da, db = a.__dict__, b.__dict__
+    if da.keys() != db.keys():
+        return sorted(set(da) ^ set(db))
+    return [k for k in da if not (
+        da[k].dtype == db[k].dtype and np.array_equal(da[k], db[k])
+        if isinstance(da[k], np.ndarray)
+        else type(da[k]) is type(db[k]) and da[k] == db[k])]
+
+
+def context_start(preset, starts):
+    """The preset's context built cold on the native host math (its cached
+    pickle not read, then rewritten) and read from the cache. At bronze and
+    silver its pure-Python twin (``native.plain()``) is built too and must
+    equal it field for field; at gold and platinum, where the twin would
+    cost what a cold start cost before, every prime is checked in Python
+    (prime, and q = 1 mod 2N). Records the times in ``starts``."""
+    import liberate_tpu_torch
+    from liberate_tpu_torch import native
+    from liberate_tpu_torch.fhe.context.ckks_context import CkksContext
+    from liberate_tpu_torch.fhe.context.prim_test import miller_rabin_plain
+
+    params = {k: v for k, v in liberate_tpu_torch.params[preset].items()
+              if k != "mesh_shape"}
+    t = time.perf_counter()
+    ctx = CkksContext(**params, read_cache=False)
+    cold = time.perf_counter() - t
+    t = time.perf_counter()
+    CkksContext(**params)
+    cached = time.perf_counter() - t
+    if preset in PLAIN_COLD_EARLIER:
+        bad = [q for q in ctx.q if not (
+            (q - 1) % (2 * ctx.N) == 0 and miller_rabin_plain(q))]
+        if bad:
+            raise AssertionError(f"{preset} context: {bad} are not NTT "
+                                 f"primes")
+        plain = f"{PLAIN_COLD_EARLIER[preset]} in an earlier run"
+        check = (f"all {len(ctx.q)} primes prime and 1 mod 2N (checked in "
+                 f"Python); the pure-Python context took {plain}")
+    else:
+        t = time.perf_counter()
+        with native.plain():
+            twin = CkksContext(**params, read_cache=False, save_cache=False)
+        plain = f"{time.perf_counter() - t:.2f} s in this run"
+        differ = _fields_differ(ctx, twin)
+        if differ:
+            raise AssertionError(f"{preset} context: the native and "
+                                 f"pure-Python contexts differ in {differ}")
+        check = (f"its pure-Python twin {plain}, equal field for field "
+                 f"({len(ctx.__dict__)} fields: the primes, the psi banks, "
+                 f"every constant)")
+    starts[preset] = (cold, plain)
+    print(f"{preset} context ({len(ctx.q)} primes, logN {ctx.logN}): "
+          f"{cold:.3f} s cold on the native host math, {cached:.3f} s from "
+          f"the cache; {check}")
+
+
+def host_cpu():
+    """The host CPU's model name (``lscpu``; else ``/proc/cpuinfo``), its
+    architecture and the cores this process may use."""
+    import platform
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    with open("/proc/cpuinfo") as f:
+        out += f.read()
+    model = next((line.split(":", 1)[1].strip()
+                  for line in out.splitlines()
+                  if line.lower().startswith("model name")), "not reported")
+    return (f"{model} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def examples_phase(rows):
+    """The four examples (``liberate_tpu_torch.examples``) at silver on the
+    card as a user runs them, ``main(["silver"])``, each with the counters
+    zeroed just before: every error they print < 1e-4; ``ckks_engine``
+    launches #1 and #2, ``evaluators`` and ``multiparty`` #1, #2 and #3
+    (the butterfly split route), ``multichip`` (4 ranks as threads on the
+    card, an ``rns`` and a 2-D mesh) those and #2 in its no-normalise mode
+    (the coefficient-sharded inverse); none launches another kernel. Prints
+    each example's wall time and errors."""
+    import numpy as np
+    import torch
+
+    from liberate_tpu_torch.examples import (ckks_engine, evaluators,
+                                             multichip, multiparty)
+
+    bfly = ("ntt_fwd", "ntt_inv", "ksk_mulacc")
+    for name, mod, own in (
+            ("ckks_engine", ckks_engine, bfly[:2]),
+            ("evaluators", evaluators, bfly),
+            ("multiparty", multiparty, bfly),
+            ("multichip", multichip, bfly + ("ntt_inv_no_norm",))):
+        torch.cuda.synchronize()
+        reset_counters()
+        t = time.perf_counter()
+        errors = mod.main(["silver"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        path = counters()
+        worst = {k: float(np.max(v)) for k, v in errors.items()}
+        top = max(worst, key=worst.get)
+        print(f"example {name} at silver: {wall:.2f} s wall; {len(worst)} "
+              f"errors, the largest {worst[top]:.3e} ({top}); launches "
+              f"{ {k: v for k, v in path.items() if v} }")
+        if not worst[top] < 1e-4:
+            raise AssertionError(f"example {name}: error {worst[top]} "
+                                 f"({top}) >= 1e-4")
+        check_launches(f"example {name}", path, own, rows)
+
+
+def engine_start(preset, dev, starts):
+    """The start of the preset's engines, in parts: the context
+    (``context_start``); the tensor-core tables built without the cache
+    (with the build's peak device memory), built and written to the cache,
+    and read from it."""
     import torch
 
     import liberate_tpu_torch
@@ -2337,14 +2471,8 @@ def engine_start(preset, dev):
 
     params = {k: v for k, v in liberate_tpu_torch.params[preset].items()
               if k != "mesh_shape"}
-    t = time.perf_counter()
-    CkksContext(**params, read_cache=False)
-    cold = time.perf_counter() - t
-    t = time.perf_counter()
+    context_start(preset, starts)
     ctx = CkksContext(**params)
-    cached = time.perf_counter() - t
-    print(f"{preset} context ({len(ctx.q)} primes, logN {ctx.logN}): "
-          f"{cold:.2f} s cold, {cached:.3f} s from the cache")
     groups = mxu_ntt.width_groups(ctx.q)
     for lo, hi, (dA, dB) in groups:
         mxu_ntt._cache_path(ctx, lo, hi, dA, dB).unlink(missing_ok=True)
@@ -2373,7 +2501,7 @@ def engine_start(preset, dev):
     torch.cuda.empty_cache()
 
 
-def preset_phase(preset, dev, gen, rows, scratch, new_phases):
+def preset_phase(preset, dev, gen, rows, scratch, new_phases, starts):
     """Bronze and platinum: the engines' start (engine_start, then the
     butterfly and tensor-core engines from the cached context and
     tables), every kernel of their multiply against its twin, the split
@@ -2389,7 +2517,7 @@ def preset_phase(preset, dev, gen, rows, scratch, new_phases):
 
     t0 = time.perf_counter()
     params = liberate_tpu_torch.params[preset]
-    engine_start(preset, dev)
+    engine_start(preset, dev, starts)
     t = time.perf_counter()
     eng = liberate_tpu_torch.CkksEngine(**params, seed=SEED)
     print(f"{preset} engine (context from the cache, butterfly tables): "
@@ -2486,9 +2614,14 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
+    cpu = host_cpu()
+    print(f"host CPU: {cpu}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    t = time.perf_counter()
+    _build.build(list(_build.HOST_SOURCES))
+    print(f"host math build ({_build.CXX}): {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     libs = _build.build()
     print(f"build: {time.perf_counter() - t:.2f} s "
@@ -2526,7 +2659,11 @@ def main():
     torch.cuda.synchronize()
     silver = liberate_tpu_torch.params["silver"]
 
-    # -- 3. the tensor-core tables at silver: build, cache write, cache read -------
+    # -- 3. the contexts on the native host math; the tensor-core tables at
+    # silver: build, cache write, cache read -----------------------------------
+    starts = {}
+    for preset in ("silver", "gold"):
+        context_start(preset, starts)
     ctx = CkksContext(**{k: v for k, v in silver.items()
                          if k != "mesh_shape"})
     for p in Path(ctx.cache_folder).glob("mxu_*.pt"):
@@ -2698,18 +2835,21 @@ def main():
     t = time.perf_counter()
     multiprocess_phase()
     new_phases[MULTIPROCESS] = time.perf_counter() - t
+    t = time.perf_counter()
+    examples_phase(rows)
+    new_phases[EXAMPLES] = time.perf_counter() - t
 
     # -- 7. bronze and platinum: start, kernels, paths ---------------------------
     for preset in ("bronze", "platinum"):
-        preset_phase(preset, dev, gen, rows, scratch, new_phases)
+        preset_phase(preset, dev, gen, rows, scratch, new_phases, starts)
     del scratch
 
     print("timed phases: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in new_phases.items())
-        + f"; {sum(new_phases.values()):.1f} s in all; the phases this "
-        f"slice added ({MESH2D}, {MXU_MESH}, {MULTIPROCESS}): "
-        f"{sum(new_phases[k] for k in (MESH2D, MXU_MESH, MULTIPROCESS)):.1f}"
-        f" s")
+        + f"; {sum(new_phases.values()):.1f} s in all")
+    print(f"cold contexts on the native host math ({card}; host CPU {cpu}): "
+          + ", ".join(f"{p} {cold:.3f} s (pure Python {plain})"
+                      for p, (cold, plain) in starts.items()))
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))

@@ -3,8 +3,11 @@
 Derives the complete RNS-CKKS parameter set from user inputs — primes,
 Montgomery constants, and NTT twiddle banks — mirroring the reference's
 derivations (reference: src/liberate/fhe/context/ckks_context.py:151-341)
-while staying framework-agnostic (pure Python/NumPy; device arrays are
-built later by NttContext).
+while staying framework-agnostic (Python, NumPy and the native host math of
+``native/hostmath.cpp``; device arrays are built later by NttContext).
+Every native step has a pure-Python twin (``*_plain``); the twin of a whole
+context is ``with native.plain(): CkksContext(...)``, field for field the
+same.
 
 Prime pack layout (reference: ckks_context.py:237-260):
     q = [scale_0 .. scale_{L-1}, base_prime, special_0 .. special_{k-1}]
@@ -20,10 +23,11 @@ from pathlib import Path
 
 import numpy as np
 
+from ... import native
 from ..cache import cache
 from ..presets import errors
 from .generate_primes import (
-    check_ntt_primality,
+    descending_primes,
     generate_alternating_prime_sequence,
 )
 from .security_parameters import maximum_qbits
@@ -32,9 +36,11 @@ __all__ = [
     "CkksContext",
     "ckks_context",
     "primitive_root_2N",
+    "primitive_root_2N_plain",
     "bit_reverse",
     "bit_reverse_order_index",
     "psi_bank",
+    "psi_bank_plain",
 ]
 
 
@@ -45,6 +51,12 @@ def primitive_root_2N(q: int, N: int) -> int:
     candidates to the (q-1)/2N power and keep the first whose N-th power is
     not 1 (i.e. order exactly 2N).
     """
+    g = native.primitive_root_2N(q, N)
+    return primitive_root_2N_plain(q, N) if g is None else g
+
+
+def primitive_root_2N_plain(q: int, N: int) -> int:
+    """``primitive_root_2N`` in Python integers."""
     _2N = 2 * N
     K = (q - 1) // _2N
     g = None
@@ -76,11 +88,22 @@ def psi_bank(q: list[int], logN: int):
     Longa-Naehrig twiddle layout the reference pre-paints
     (reference: ckks_context.py:48-56, 89-112).
 
-    Returned as int64 numpy arrays [C, N] (values < 2^62 fit), computed
-    with Python integers (the result is pickled in the context cache).
+    Returned as int64 numpy arrays [C, N] (values < 2^62 fit; the result
+    is pickled in the context cache).
     """
     N = 2 ** logN
     roots = [primitive_root_2N(qi, N) for qi in q]
+    iroots = [pow(r, -1, qi) for r, qi in zip(roots, q)]
+    banks = native.psi_banks(q, roots, iroots, logN)
+    if banks is None:
+        return psi_bank_plain(q, logN)
+    return tuple(b.view(np.int64) for b in banks)
+
+
+def psi_bank_plain(q: list[int], logN: int):
+    """``psi_bank`` in Python integers."""
+    N = 2 ** logN
+    roots = [primitive_root_2N_plain(qi, N) for qi in q]
     iroots = [pow(r, -1, qi) for r, qi in zip(roots, q)]
 
     brev = [bit_reverse(i, logN) for i in range(N)]
@@ -104,14 +127,7 @@ def psi_bank(q: list[int], logN: int):
 
 def _get_message_special_primes(message_bits: int, N: int, how_many: int) -> list[int]:
     """Descending NTT-friendly primes below 2^message_bits for this N."""
-    primes = []
-    q = 2 ** message_bits - 1
-    m = 2 * N
-    while len(primes) < how_many:
-        if check_ntt_primality(q, m):
-            primes.append(q)
-        q -= 2
-    return primes
+    return descending_primes(message_bits, 2 * N, how_many)
 
 
 @errors.log_error

@@ -10,6 +10,9 @@ Reproduces the reference's prime-selection strategy
   cumulative-deviation optimization so the running product of
   (scale / q_i) stays as close to 1 as possible (:116-203).
 
+The searches run the native host math (``native/hostmath.cpp``) below 2^63;
+``find_the_next_prime_plain`` is their pure-Python twin.
+
 Results are memoized in-process and pickled in the cache folder.
 """
 
@@ -17,23 +20,38 @@ import math
 import pickle
 from pathlib import Path
 
-from .prim_test import miller_rabin
+from ... import native
+from .prim_test import miller_rabin_plain
 from .security_parameters import maximum_qbits
 
 DEFAULT_LOGN_RANGE = list(range(6, 18))
 
 
-def check_ntt_primality(q: int, M: int) -> bool:
-    """Is q prime and q = 1 (mod M)? (M = 2N for negacyclic NTT.)"""
-    return (q - 1) % M == 0 and miller_rabin(q)
-
-
 def find_the_next_prime(start: int, m: int, up: bool = True) -> int:
+    """The first prime q = 1 (mod m) from ``start`` in steps of 2, upwards
+    or downwards (``start`` included)."""
+    q = native.find_ntt_prime(start, m, up)
+    return find_the_next_prime_plain(start, m, up) if q is None else q
+
+
+def find_the_next_prime_plain(start: int, m: int, up: bool = True) -> int:
+    """``find_the_next_prime`` in Python integers."""
     step = 2 if up else -2
     q = start
-    while not check_ntt_primality(q, m):
+    while not ((q - 1) % m == 0 and miller_rabin_plain(q)):
         q += step
     return q
+
+
+def descending_primes(mb: int, m: int, how_many: int) -> list:
+    """The first ``how_many`` primes q = 1 (mod m) below 2^mb, descending."""
+    primes = []
+    q = 2 ** mb - 1
+    while len(primes) < how_many:
+        q = find_the_next_prime(q, m, up=False)
+        primes.append(q)
+        q -= 2
+    return primes
 
 
 def generate_message_primes(mbits=None, cache_folder=None, how_many=11, logN_range=None):
@@ -59,14 +77,7 @@ def generate_message_primes(mbits=None, cache_folder=None, how_many=11, logN_ran
         mprimes[mb] = {}
         for logN in logN_range:
             N = 2 ** logN
-            m = 2 * N
-            primes = []
-            q = 2 ** mb - 1
-            while len(primes) < how_many:
-                if check_ntt_primality(q, m):
-                    primes.append(q)
-                q -= 2
-            mprimes[mb][N] = primes
+            mprimes[mb][N] = descending_primes(mb, 2 * N, how_many)
 
     if savefile is not None:
         savefile.parent.mkdir(parents=True, exist_ok=True)

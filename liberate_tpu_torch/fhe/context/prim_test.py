@@ -5,7 +5,12 @@ The reference uses a randomized 10-round Miller-Rabin
 *deterministic* Miller-Rabin witness set that is exact for all n < 3.3e24
 (covers every 64-bit integer), so prime generation is reproducible across
 runs and hosts — a requirement for deterministic multi-host parameter setup.
+
+``miller_rabin`` runs the native host math (``native/hostmath.cpp``) below
+2^63 and its pure-Python twin ``miller_rabin_plain`` above.
 """
+
+from ... import native
 
 # Deterministic witnesses for n < 3,317,044,064,679,887,385,961,981.
 _WITNESSES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
@@ -19,6 +24,12 @@ def miller_rabin(n: int, rounds: int | None = None) -> bool:
     ``rounds`` is accepted for API compatibility and ignored; the witness
     set is deterministic and exact in the relevant range.
     """
+    r = native.miller_rabin(n)
+    return miller_rabin_plain(n) if r is None else r
+
+
+def miller_rabin_plain(n: int, rounds: int | None = None) -> bool:
+    """``miller_rabin`` in Python integers."""
     if n < 2:
         return False
     for p in _SMALL_PRIMES:

@@ -19,6 +19,10 @@ def test_import_pulls_in_no_jax():
         "before = set(sys.modules)\n"
         "import liberate_tpu_torch, liberate_tpu_torch.interop\n"
         "import liberate_tpu_torch.parallel.coef_shard\n"
+        "import liberate_tpu_torch.native, liberate_tpu_torch.utils\n"
+        "from liberate_tpu_torch.examples import (ckks_engine, evaluators,\n"
+        "    multichip, multiparty)\n"
+        "liberate_tpu_torch.native.miller_rabin(97)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')"
         " or m == 'liberate_tpu' or m.startswith('liberate_tpu.'))\n"
@@ -37,6 +41,8 @@ _NAMES_JAX = re.compile(
 def test_no_source_names_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert files
+    assert {"native", "utils", "examples"} <= {
+        f.relative_to(PKG).parts[0] for f in files}
     offenders = [str(f.relative_to(PKG)) for f in files
                  if _NAMES_JAX.search(f.read_text())]
     assert not offenders, offenders

@@ -75,8 +75,16 @@ def test_mesh2d_coordinates_and_groups():
 
 
 def test_rank_exception_is_raised():
+    # Each rank keeps its mesh to the end of the test: a rank that dropped
+    # its groups at once could close them while its peer still connected
+    # (gloo: "Connection closed by peer"), a failure of the peer's instead
+    # of rank 1's exception.
+    meshes = []
+
     def body():
-        if make_mesh(2).axis_index("rns") == 1:
+        mesh = make_mesh(2)
+        meshes.append(mesh)
+        if mesh.axis_index("rns") == 1:
             raise KeyError("rank 1")
         return 0
 
