@@ -38,8 +38,10 @@ interface of the multi-launch kernel it replaced, with its [P, C, N]
 scratch), first. ``--only NAME ...`` picks the variants.
 
 ``--parent DIR`` also builds ``DIR/liberate_tpu_torch/csrc/ntt.cu`` (an
-earlier tree with the same C interface) as ``parent`` and times it first
-and last, around the variants. ``base`` is held bit-equal to the plain
+earlier tree, with this C interface or the one before the Montgomery
+modes, which had no ``k`` and mode arguments) as ``parent`` and times it
+first and last, around the variants (``--only base``: the parent against
+this tree alone). ``base`` is held bit-equal to the plain
 twins, and ``parent``, ``gold_k4``, ``threads1024`` and ``no_swizzle`` to
 ``base``; the others compute wrong words: only their times mean
 anything. Exits non-zero without a CUDA device.
@@ -58,12 +60,14 @@ REPO = Path(__file__).resolve().parent
 # (old, new) source edits of each variant.
 _GOLD_K4 = [("constexpr int kFullClusterLogN = 16;",
              "constexpr int kFullClusterLogN = 17;"),
-            ("    case 24 + 0: return kernel<3, 0>(fwd);",
-             "    case 24 + 0: return kernel<3, 0>(fwd);\n"
-             "    case 16 + 0: return kernel<2, 0>(fwd);")]
+            ("    case 24 + 0: return kernel<3, 0, TW, CANON>(fwd);",
+             "    case 24 + 0: return kernel<3, 0, TW, CANON>(fwd);\n"
+             "    case 16 + 0: return kernel<2, 0, TW, CANON>(fwd);")]
 _WARPS32 = [("constexpr int kLogWords = 5;", "constexpr int kLogWords = 4;"),
             ("constexpr int kMaxThreads = 512;",
              "constexpr int kMaxThreads = 1024;")]
+_ADD_TWIDDLE = ("  const u64* k = reinterpret_cast<const u64*>(&t);\n"
+                "  a += k[0];\n  b += k[sizeof(t) / 8 - 1];")
 VARIANTS = {
     "base": [],
     "gold_k4": _GOLD_K4,
@@ -71,14 +75,14 @@ VARIANTS = {
     "no_swizzle": [("int swz(int i) { return i ^ ((i >> 4) & 15); }",
                     "int swz(int i) { return i; }")],
     "compute_only": [
-        ("    t[0] = __ldg(wc + e);\n    tp[0] = __ldg(wpc + e);",
-         "    t[0] = e;\n    tp[0] = ~e;"),
-        ("      const ulonglong2 v =\n"
-         "          __ldg(reinterpret_cast<const ulonglong2*>(wc + e + kk));\n"
-         "      const ulonglong2 vp =\n"
-         "          __ldg(reinterpret_cast<const ulonglong2*>(wpc + e + kk));",
-         "      const ulonglong2 v = make_ulonglong2(e + kk, e);\n"
-         "      const ulonglong2 vp = make_ulonglong2(~e, kk);"),
+        ("    return T{__ldg(w + e), __ldg(wp + e)};",
+         "    return T{(u64)e, ~(u64)e};"),
+        ("    const ulonglong2 v =\n"
+         "        __ldg(reinterpret_cast<const ulonglong2*>(w + e + kk));\n"
+         "    const ulonglong2 vp =\n"
+         "        __ldg(reinterpret_cast<const ulonglong2*>(wp + e + kk));",
+         "    const ulonglong2 v = make_ulonglong2(e + kk, e);\n"
+         "    const ulonglong2 vp = make_ulonglong2(~e, kk);"),
         ("        const ulonglong2 v = p[k];",
          "        const ulonglong2 v = make_ulonglong2(base, k);"),
         ("      for (int k = 0; k < W; ++k) x[k] = "
@@ -94,8 +98,9 @@ VARIANTS = {
         ("  const ulonglong2 v = "
          "*reinterpret_cast<const ulonglong2*>(sh + (at & ~1));",
          "  const ulonglong2 v = make_ulonglong2(at, p);"),
-        ("        v[it][i] = "
-         "src[j0 + (h + it) * blockDim.x + (long long)i * t];",
+        ("        v[it][i] = entry<CANON>(\n"
+         "            src[j0 + (h + it) * blockDim.x + (long long)i * t], "
+         "pre, tw);",
          "        v[it][i] = j0 + it + i;"),
         ("        X::store(sh, j0 + (h + it) * blockDim.x, i, t, v[it][i]);",
          "        if (v[it][i] == 12345) sh[i] = 0;"),
@@ -104,15 +109,21 @@ VARIANTS = {
         ("        dst[j0 + (h + it) * blockDim.x + (long long)i * t] = o;",
          "        if (o == 12345) "
          "dst[j0 + (h + it) * blockDim.x + (long long)i * t] = o;")],
+    # the twiddle words (the pair of a Shoup twiddle) added, for either form
     "no_butterflies": [
-        ("  const u64 U = a, V = shoup(b, w, wp, nq);\n"
-         "  a = cond_sub(U + V, 2 * q);\n  b = cond_sub(U + 2 * q - V, 2 * q);",
-         "  a += w;\n  b += wp;"),
+        ("  const u64 U = a, V = tw.mul(b, t);\n"
+         "  a = cond_sub(U + V, 2 * tw.q);\n"
+         "  b = cond_sub(U + 2 * tw.q - V, 2 * tw.q);",
+         _ADD_TWIDDLE),
         ("  const u64 U = a, V = b;\n"
-         "  b = shoup(cond_sub(U + 2 * q - V, 2 * q), w, wp, nq);\n"
-         "  a = cond_sub(U + V, 2 * q);",
-         "  a += w;\n  b += wp;")],
+         "  b = tw.mul(cond_sub(U + 2 * tw.q - V, 2 * tw.q), t);\n"
+         "  a = cond_sub(U + V, 2 * tw.q);",
+         _ADD_TWIDDLE)],
 }
+
+
+# The variants of ntt.cu that keep the port's words.
+RIGHT_WORDS = ("base", "parent", "gold_k4", "threads1024", "no_swizzle")
 
 
 # (label, logN, P, C, [(K, G, held), ...], [(K, G, held), ...]): #4 at the
@@ -280,11 +291,15 @@ def mulacc_sweep(dev, gen, parent=None, only=None):
 
             def run(f=fns[name], args=args, d=d, what=what,
                     keep=scratch):
+                # no canon pre-stage (a null ident) but in the parent's
+                # interface, which had none
+                ident = () if name == "parent" else (None,)
                 rc = f(x.data_ptr(), x.stride(0), x.stride(1), *args,
                        plan.w.data_ptr(), plan.wp.data_ptr(),
-                       plan.q.data_ptr(), plan.k.data_ptr(), k0.data_ptr(),
-                       k1.data_ptr(), k0.stride(0), k0.stride(1),
-                       d[0].data_ptr(), d[1].data_ptr(), stream)
+                       plan.q.data_ptr(), plan.k.data_ptr(), *ident,
+                       k0.data_ptr(), k1.data_ptr(), k0.stride(0),
+                       k0.stride(1), d[0].data_ptr(), d[1].data_ptr(),
+                       stream)
                 if rc != 0:
                     raise RuntimeError(f"#4 {what}: launch error {rc}")
 
@@ -413,6 +428,10 @@ def main():
         print(f"{label}: x.clone() of {8 * x.numel()} bytes {ms[0]:.4f} ms "
               f"(min {ms[1]:.4f}, max {ms[2]:.4f})")
     order = [n for n in VARIANTS if n in libs] + ["base"]
+    # A parent from before the Montgomery modes takes no k and no mode.
+    old_iface = bool(opts.parent) and "int pre," not in (
+        Path(opts.parent) / "liberate_tpu_torch" / "csrc" / "ntt.cu"
+    ).read_text()
     if opts.parent:
         order = ["parent"] + order + ["parent"]
     fns = {}
@@ -422,19 +441,26 @@ def main():
             fns[name] = (lib.ltt_ntt_fwd, lib.ltt_ntt_inv)
             for f in fns[name]:
                 f.argtypes = cuda_ntt._ARGTYPES["ltt_ntt_fwd"]
+                if name == "parent" and old_iface:
+                    f.argtypes = f.argtypes[:10] + f.argtypes[11:13] + \
+                        f.argtypes[14:]
                 f.restype = ctypes.c_int
         for label, plan, x, inverse, scal, red, want in cases:
             y = torch.empty_like(x)
             w, wp = (plan.iw, plan.iwp) if inverse else (plan.w, plan.wp)
             s = getattr(plan, scal) if scal else None
 
+            old = name == "parent" and old_iface
+            k = () if old else (plan.k.data_ptr(),)
+            mode = () if old else (int(s is not None and not inverse),)
+
             def run(fn=fns[name][inverse], x=x, y=y, w=w, wp=wp, s=s,
-                    red=red, plan=plan):
+                    red=red, plan=plan, k=k, mode=mode):
                 rc = fn(x.data_ptr(), x.stride(0), x.stride(1), y.data_ptr(),
                         x.shape[0], x.shape[1], plan.logN, w.data_ptr(),
-                        wp.data_ptr(), plan.q.data_ptr(),
+                        wp.data_ptr(), plan.q.data_ptr(), *k,
                         s[0].data_ptr() if s else None,
-                        s[1].data_ptr() if s else None, red,
+                        s[1].data_ptr() if s else None, *mode, red,
                         torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
                     raise RuntimeError(f"{name}: launch error {rc}")

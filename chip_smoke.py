@@ -196,6 +196,15 @@ MONT_MULS = 4 + 3 + 4       # a*b (128 bit), m = lo*k, m*q (128 bit)
 SPIN_CYCLES = 2_000_000
 # The kernel launches of one mult of an unsplit butterfly engine.
 UNSPLIT_PER_MULT = dict(ntt_fwd=1, ntt_mulacc=1, ntt_inv=2, ksk_mulacc=0)
+# The JAX package's config switches of the reference-parity chains, as
+# engine keywords: every chain Montgomery (butterfly), and the tensor-core
+# domain of the JAX package's XLA composition (use_mxu_pallas off).
+PARITY = dict(use_shoup_twiddles=False, use_shoup_rescale=False,
+              use_shoup_moddown=False, use_shoup_extend=False)
+PARITY_MXU = dict(use_mxu_ntt=True, use_mxu_pallas=False,
+                  use_shoup_rescale=False, use_shoup_moddown=False,
+                  use_shoup_extend=False)
+PARITY_LABEL = "silver parity"
 # The switch kernels' ct-batched segment cases (kernel, B) at each preset.
 SEGMENTS = {
     "silver": [("mxu_switch", 2), ("mxu_switch", 4), ("mxu_switch", 8),
@@ -279,9 +288,12 @@ def bound(bytes_moved, int32_muls, int8_macs=0):
                                        else "operations")
 
 
-def recombine_muls(d):
+def recombine_muls(d, mont_rec=False):
     """32-bit multiplies of one recombination at d digits: the Barrett
-    reduction of the low part, a Shoup product of the high part."""
+    reduction of the low part, a Shoup product of the high part; with
+    ``mont_rec`` a Montgomery product of each part."""
+    if mont_rec:
+        return MONT_MULS * (1 + (d > 5))
     return BARRETT_MULS + (SHOUP_MULS if d > 5 else 0)
 
 
@@ -294,14 +306,15 @@ def mxu_table_bytes(d, S, R, N):
 def mxu_ntt_work(groups, B, S, R):
     """(bytes, int32 multiplies, int8 MACs) of one transform of B
     polynomials over a layout's width groups: data read and written once,
-    each channel's tables once; per element two recombinations and the
-    twiddle product."""
+    each channel's tables once; per element two recombinations (in the
+    plan's form) and the twiddle product."""
     N = S * R
     by = muls = macs = 0
     for g in groups:
         C, d = g.hi - g.lo, g.plan.dA
         by += 16 * B * C * N + C * mxu_table_bytes(d, S, R, N)
-        muls += B * C * N * (2 * recombine_muls(d) + MONT_MULS)
+        muls += B * C * N * (2 * recombine_muls(d, g.plan.mont_rec)
+                             + MONT_MULS)
         macs += B * C * d * d * N * (S + R)
     return by, muls, macs
 
@@ -393,7 +406,8 @@ def check_case(name, label, fn, twin, b, rows, src, replaces,
 def counters():
     from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt
 
-    return {**cuda_ntt.launches, **cuda_mxu.launches}
+    return {**cuda_ntt.launches, **cuda_ntt.mode_launches,
+            **cuda_mxu.launches}
 
 
 def reset_counters():
@@ -691,14 +705,29 @@ def mulacc_geometry_check():
               f"{g['held']} held, {g['ctas']} CTAs")
 
 
-def transform_bound(x, logN, muls_extra):
+def transform_bound(x, logN, muls_extra, mont=False, redc_extra=0):
     """The bound of one butterfly transform of x [B, C, N]: the words read
-    and written once and the channel's twiddles and quotients once; N/2 *
-    logN Shoup products per polynomial, plus ``muls_extra`` per word (the
-    entry or exit multiply)."""
+    and written once and the channel's twiddles and quotients once (with
+    Montgomery twiddles one word a twiddle); N/2 * logN Shoup (Montgomery)
+    products per polynomial, plus ``muls_extra`` per word (the entry, exit
+    or canon multiplies) and ``redc_extra`` bare Montgomery reductions per
+    word (the Montgomery exit: m = lo * k and m * q, MONT_MULS - 4)."""
     B, cx, N = x.shape
     muls = B * cx * (N // 2) * logN + muls_extra * B * cx * N
-    return bound(8 * (2 * x.numel() + 2 * cx * N), muls * SHOUP_MULS)
+    return bound(8 * (2 * x.numel() + (1 if mont else 2) * cx * N),
+                 muls * (MONT_MULS if mont else SHOUP_MULS)
+                 + redc_extra * x.numel() * (MONT_MULS - 4))
+
+
+def mulacc_bound(x, logN, mont=False, canon=False):
+    """The bound of #4 on the parts x [P, C_sp, N]: x and both key halves
+    read, the twiddles once (and their quotients, Shoup), d0 and d1
+    written; P forward transforms (Shoup or Montgomery products), 2P key
+    products and, with the canon, one Montgomery product a word."""
+    _, C_sp, N = x.shape
+    return bound(8 * (3 * x.numel() + (3 if mont else 4) * C_sp * N),
+                 x.numel() // 2 * logN * (MONT_MULS if mont else SHOUP_MULS)
+                 + (2 + canon) * x.numel() * MONT_MULS)
 
 
 def prime_plans_phase(dev, gen, rows, scratch):
@@ -931,25 +960,42 @@ def standalone_switch_path(eng, keys, label, rows):
 
 
 def switch_kernels(eng):
-    """The kernels of one key switch on the engine's route: the tensor-core
-    switch kernel of ``switch_route``, or the butterfly core of
+    """The kernels of one key switch on the engine's route, by their launch
+    counters: the tensor-core switch kernel of ``switch_route`` (none on
+    its composed route, the transforms only), or the butterfly core of
     ``butterfly_switch_route`` with the inverse transform (and, but on the
-    fused route, the forward transform of the parts)."""
+    fused route, the forward transform of the parts), in the engine's
+    twiddle form and, with the Montgomery extension, with the canon
+    pre-stage in #1 (split, composed) or #4 (fused)."""
     from liberate_tpu_torch.fhe.engine import butterfly_switch_route, \
         switch_route
+    from liberate_tpu_torch.ntt.cuda_ntt import launch_label
 
     if eng.use_mxu_ntt:
-        return [switch_route(eng.ctx.logN, eng.use_shoup_ksk)]
-    return {"split": ["ntt_fwd", "ksk_mulacc", "ntt_inv"],
-            "fused": ["ntt_mulacc", "ntt_inv"],
-            "composed": ["ntt_fwd", "ntt_inv"]}[
-        butterfly_switch_route(eng.ctx.logN, eng.use_split_switch)]
+        route = switch_route(eng.ctx.logN, eng.use_shoup_ksk,
+                             shoup_moddown=eng.use_shoup_moddown,
+                             fused=eng._mxu_fused())
+        return transforms(eng) if route == "composed" else [route]
+    mont, canon = not eng.use_shoup_twiddles, not eng.use_shoup_extend
+    fwd, inv = transforms(eng)
+    return {"split": [launch_label("ntt_fwd", mont, canon), "ksk_mulacc",
+                      inv],
+            "fused": [launch_label("ntt_mulacc", mont, canon), inv],
+            "composed": list(dict.fromkeys(
+                [fwd, launch_label("ntt_fwd", mont, canon), inv]))}[
+        butterfly_switch_route(eng.ctx.logN, eng.use_split_switch,
+                               fused_switch=eng.use_fused_switch)]
 
 
 def transforms(eng):
-    """The engine's domain's forward and inverse transform kernels."""
-    return (["mxu_ntt_fwd", "mxu_ntt_inv"] if eng.use_mxu_ntt
-            else ["ntt_fwd", "ntt_inv"])
+    """The engine's domain's forward and inverse transform kernels, by
+    their launch counters (Montgomery twiddles, or the Montgomery
+    recombination of the master plan, counted apart)."""
+    if eng.use_mxu_ntt:
+        tag = "" if eng.use_mxu_pallas else "_montrec"
+        return ["mxu_ntt_fwd" + tag, "mxu_ntt_inv" + tag]
+    tag = "" if eng.use_shoup_twiddles else "_mont"
+    return ["ntt_fwd" + tag, "ntt_inv" + tag]
 
 
 def tensors(x):
@@ -1499,9 +1545,11 @@ def coef_shard_phase(eng, gen, rows, shards=(4, 8)):
     ``intt_coef_sharded(post_exit=True, post_reduce=True)``, bit-equal to
     the single-device #1 and #2 on the same words, with the counters
     zeroed just before: S launches of the local #1 and of #2 in its
-    no-normalise mode, no other kernel. Each local kernel held against its
-    twin at the local shape (logL 14 at S = 4, 13 at S = 8), timed beside
-    its bound; the whole sharded pair's wall (median of 5, rank 0's clock
+    no-normalise mode, no other kernel. The same at S = 4 on a context
+    with Montgomery twiddles (``use_shoup_twiddles`` off: the local
+    kernels' Montgomery modes). Each local kernel held against its twin
+    at the local shape (logL 14 at S = 4, 13 at S = 8), timed beside its
+    bound; the whole sharded pair's wall (median of 5, rank 0's clock
     between barriers) beside the single-device pair's. One card: a
     functional check, the exchanges go through host buffers."""
     import statistics
@@ -1509,22 +1557,26 @@ def coef_shard_phase(eng, gen, rows, shards=(4, 8)):
     import torch
 
     from liberate_tpu_torch.ntt import cuda_ntt, ops
+    from liberate_tpu_torch.ntt.ntt_context import NttContext
     from liberate_tpu_torch.parallel import make_mesh, run_ranks
     from liberate_tpu_torch.parallel.coef_shard import (
         intt_coef_sharded, make_coef_plan, ntt_coef_sharded)
 
-    pack = eng.pack(0, -2)
-    P, C, N = len(eng.ntt.parts(0)), pack.q.shape[0], eng.ctx.N
-    x = random_words(pack.q, (P, C, N), gen)
-    f_ref = ops.enter_ntt(x, pack)
-    i_ref = ops.intt_exit_reduce(f_ref, pack)
-    single = cuda_ms(lambda: ops.intt_exit_reduce(ops.enter_ntt(x, pack),
-                                                  pack), 20)
-    for S in shards:
-        L = N // S
+    P, N = len(eng.ntt.parts(0)), eng.ctx.N
+    C = eng.pack(0, -2).q.shape[0]
+    x = random_words(eng.pack(0, -2).q, (P, C, N), gen)
+    mont = NttContext(eng.ctx, eng.torch_device, shoup_twiddles=False)
+    for nc, S in [(eng.ntt, S) for S in shards] + [(mont, 4)]:
+        pack, L = nc.level_pack(0, -2), N // S
+        is_mont = pack.plan.mont
+        tag = " Montgomery twiddles" if is_mont else ""
+        f_ref = ops.enter_ntt(x, pack)
+        i_ref = ops.intt_exit_reduce(f_ref, pack)
+        single = cuda_ms(lambda: ops.intt_exit_reduce(
+            ops.enter_ntt(x, pack), pack), 20)
 
         def body():
-            plan = make_coef_plan(eng.ntt, make_mesh(S, axis_name="coef"))
+            plan = make_coef_plan(nc, make_mesh(S, axis_name="coef"))
             mesh, i = plan.mesh, plan.index
             xs = x[..., i * L:(i + 1) * L].contiguous()
             torch.cuda.synchronize()
@@ -1555,8 +1607,8 @@ def coef_shard_phase(eng, gen, rows, shards=(4, 8)):
         back = torch.cat([o[3] for o in out], dim=-1)
         path, walls = out[0][4], out[0][5]
         same = torch.equal(f, f_ref) and torch.equal(back, i_ref)
-        print(f"gold coef-sharded S={S} ([P={P}, C={C}, L={L}] a rank): "
-              f"forward with the entry and "
+        print(f"gold coef-sharded S={S}{tag} ([P={P}, C={C}, L={L}] a "
+              f"rank): forward with the entry and "
               f"inverse with the exit and reduce "
               f"{'bit-equal to' if same else 'DIFFER from'} the "
               f"single-device #1 and #2; launches "
@@ -1566,33 +1618,36 @@ def coef_shard_phase(eng, gen, rows, shards=(4, 8)):
               f"host buffers) against {single[0]:.3f} ms single-device "
               f"(CUDA events, median of 20)")
         if not same:
-            raise AssertionError(f"gold coef-sharded S={S}: words differ "
-                                 f"from the single-device transforms")
+            raise AssertionError(f"gold coef-sharded S={S}{tag}: words "
+                                 f"differ from the single-device transforms")
+        fwd = cuda_ntt.launch_label("ntt_fwd", is_mont)
+        inv = cuda_ntt.launch_label("ntt_inv_no_norm", is_mont)
         want = dict.fromkeys(path, 0)
-        want.update(ntt_fwd=S, ntt_inv_no_norm=S)
+        want.update({fwd: S, inv: S})
         if path != want:
-            raise AssertionError(f"gold coef-sharded S={S}: launches {path}, "
-                                 f"not {want}")
+            raise AssertionError(f"gold coef-sharded S={S}{tag}: launches "
+                                 f"{path}, not {want}")
         local, xs = out[1][0], out[1][1]
         fs = out[1][2]
         logL = local.logN
-        for name, fn, twin, b, line in (
-                ("ntt_fwd_coef_shard",
+        fwd_row = "ntt_fwd_mont" if is_mont else "ntt_fwd_coef_shard"
+        for name, k, fn, twin, b, line in (
+                (fwd_row, fwd,
                  lambda: cuda_ntt.ntt_fwd(xs, local),
                  lambda: cuda_ntt.ntt_fwd_plain(xs, local),
-                 transform_bound(xs, logL, 0), 534),
-                ("ntt_inv_no_norm",
+                 transform_bound(xs, logL, 0, mont=is_mont), 534),
+                (inv, inv,
                  lambda: cuda_ntt.ntt_inv(fs, local, no_norm=True),
                  lambda: cuda_ntt.ntt_inv_plain(fs, local, no_norm=True),
-                 transform_bound(fs, logL, 0), 1112)):
-            check_case(name, f"gold coef shard S={S} B={P} C={C} logL={logL}",
-                       fn, twin, b, rows, "liberate_tpu_torch/csrc/ntt.cu",
+                 transform_bound(fs, logL, 0, mont=is_mont), 1112)):
+            check_case(name, f"gold coef shard S={S}{tag} B={P} C={C} "
+                       f"logL={logL}", fn, twin, b, rows,
+                       "liberate_tpu_torch/csrc/ntt.cu",
                        f"liberate_tpu/ntt/pallas_ntt.py:{line}")
-        for name, k in (("ntt_fwd_coef_shard", "ntt_fwd"),
-                        ("ntt_inv_no_norm", "ntt_inv_no_norm")):
             if not rows[name]["launches"]:
                 rows[name]["launches"] = path[k]
-        del out, f, back
+        del out, f, back, f_ref, i_ref
+    del mont
 
     # On the card a shard shorter than the kernels' range (logN 8-17) is
     # refused when the plan is made: there is no plain fallback.
@@ -2242,12 +2297,7 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
                           f"{time.perf_counter() - t:.1f} s")
                     return cuda_ms(lambda: compiled(*args), 100)[0]
         elif name == "ntt_mulacc":
-            # ext and both key halves read, twiddles and quotients once,
-            # d0 and d1 written; P forward transforms, 2P key products.
-            x = args[0]
-            b = bound(8 * (3 * x.numel() + 4 * C_sp * N),
-                      x.numel() // 2 * logN * SHOUP_MULS
-                      + 2 * x.numel() * MONT_MULS)
+            b = mulacc_bound(args[0], logN)
         else:
             x = args[0]
             # the exit or entry multiply
@@ -2337,6 +2387,198 @@ def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
         check_case(name, f"{preset} {label}", lambda run=run: run(False),
                    lambda run=run: run(True), bound(by, muls, macs), rows,
                    "liberate_tpu_torch/csrc/" + file, replaces)
+
+
+def parity_kernel_phase(preset, eng, gen, rows, scratch):
+    """The kernel modes of the reference-parity chains against their twins
+    at the preset's level-1 shapes: #1/#2 with Montgomery twiddles (B=4
+    enter, B=P, B=3 exit+reduce, B=2 reduce) and #1's canon pre-stage on
+    signed words (B=P); up to logN 15 #4 with the canon and Montgomery
+    twiddles (the fused route); at silver and gold #5/#6 with the
+    Montgomery recombination on the master plan (B=4, B=3: the entry and
+    exit are pointwise ops around them)."""
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import FUSED_SWITCH_MAX_LOGN
+    from liberate_tpu_torch.ntt import cuda_mxu, cuda_ntt, mxu_ntt
+    from liberate_tpu_torch.ntt.cuda_mxu import MxuGroup
+    from liberate_tpu_torch.ntt.ntt_context import NttContext
+
+    level = 1
+    dev = eng.torch_device
+    mnc = NttContext(eng.ctx, dev, shoup_twiddles=False)
+    pack, pack_sp = mnc.level_pack(level, -1), mnc.level_pack(level, -2)
+    plan, plan_sp = pack.plan, pack_sp.plan
+    parts = eng.ntt.parts(level)
+    C, C_sp, P = pack.q.shape[0], pack_sp.q.shape[0], len(parts)
+    N, logN = eng.ctx.N, eng.ctx.logN
+    signed = torch.randint(-(1 << 61), 1 << 61, (P, C_sp, N), generator=gen,
+                           device=dev, dtype=torch.int64)
+    shoup_sp = eng.pack(level, -2).plan
+    inv_nn = random_words(pack_sp.q, (2, C_sp, N), gen, lazy=True)
+    cases = [
+        ("ntt_fwd_mont", "ntt_fwd", f"B=4 C={C} pre_enter",
+         (random_words(pack.q, (4, C, N), gen), plan),
+         dict(pre_enter=True), (1, 0)),
+        ("ntt_fwd_mont", "ntt_fwd", f"B={P} C={C_sp} (switch extension)",
+         (random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True), plan_sp),
+         {}, (0, 0)),
+        ("ntt_inv_mont", "ntt_inv", f"B=3 C={C} exit+reduce",
+         (random_words(pack.q, (3, C, N), gen, lazy=True), plan),
+         dict(post_exit=True, post_reduce=True), (1, 1)),
+        ("ntt_inv_mont", "ntt_inv", f"B=2 C={C_sp} reduce",
+         (random_words(pack_sp.q, (2, C_sp, N), gen, lazy=True), plan_sp),
+         dict(post_reduce=True), (1, 0)),
+        ("ntt_inv_no_norm_mont", "ntt_inv",
+         f"B=2 C={C_sp} no_norm (the coef-sharded inverse's local mode)",
+         (inv_nn, plan_sp), dict(no_norm=True), (0, 0)),
+        ("ntt_fwd_mont_canon", "ntt_fwd",
+         f"B={P} C={C_sp} pre_canon (Montgomery extension)",
+         (signed, plan_sp), dict(pre_canon=True), (1, 0)),
+        ("ntt_fwd_canon", "ntt_fwd",
+         f"B={P} C={C_sp} pre_canon, Shoup twiddles (Montgomery "
+         f"extension alone)", (signed, shoup_sp), dict(pre_canon=True),
+         None),
+    ]
+    fns = {"ntt_fwd": (cuda_ntt.ntt_fwd, cuda_ntt.ntt_fwd_plain, 534),
+           "ntt_inv": (cuda_ntt.ntt_inv, cuda_ntt.ntt_inv_plain, 577)}
+    for name, kern, label, args, kw, extra in cases:
+        fn, twin, line = fns[kern]
+        if extra is None:
+            # Shoup butterflies after the canon's Montgomery product
+            x = args[0]
+            b = bound(8 * (2 * x.numel() + 2 * C_sp * N),
+                      x.numel() // 2 * logN * SHOUP_MULS
+                      + x.numel() * MONT_MULS)
+        else:
+            b = transform_bound(args[0], logN, extra[0], mont=True,
+                                redc_extra=extra[1])
+        check_case(name, f"{preset} {label}", lambda: fn(*args, **kw),
+                   lambda: twin(*args, **kw), b, rows,
+                   "liberate_tpu_torch/csrc/ntt.cu",
+                   f"liberate_tpu/ntt/pallas_ntt.py:{line}",
+                   yardsticks=(scratch, args[0]))
+    if logN <= FUSED_SWITCH_MAX_LOGN:
+        C0_sp = eng.ntt.total_channels
+        k0 = random_words(eng.pack(0, -2).q,
+                          (len(eng.ntt.parts(0)), C0_sp, N), gen, lazy=True)
+        k1 = random_words(eng.pack(0, -2).q, k0.shape, gen, lazy=True)
+        lazy = random_words(pack_sp.q, (P, C_sp, N), gen, lazy=True)
+        for name, x, p, canon, what in (
+                ("ntt_mulacc_mont_canon", signed, plan_sp, True,
+                 "canon, Montgomery twiddles"),
+                ("ntt_mulacc_canon", signed, shoup_sp, True,
+                 "canon, Shoup twiddles"),
+                ("ntt_mulacc_mont", lazy, plan_sp, False,
+                 "Montgomery twiddles, no canon")):
+            args = (x, k0, k1, p, level, parts[0].part_id)
+            check_case(name,
+                       f"{preset} P={P} C={C_sp} level={level} {what} "
+                       f"(unsplit switch)",
+                       lambda args=args, c=canon: cuda_ntt.ntt_mulacc(
+                           *args, canon=c),
+                       lambda args=args, c=canon: cuda_ntt.ntt_mulacc_plain(
+                           *args, canon=c),
+                       mulacc_bound(x, logN, p.mont, canon), rows,
+                       "liberate_tpu_torch/csrc/ntt_mulacc.cu",
+                       "liberate_tpu/ntt/pallas_ntt.py:614")
+        args = (signed, k0, k1, plan_sp, level, parts[0].part_id)
+        split = cuda_ms(lambda: cuda_ntt.ksk_mulacc(
+            cuda_ntt.ntt_fwd(signed, plan_sp, pre_canon=True), *args[1:]),
+            100)
+        print(f"  ntt_mulacc_mont_canon [{preset}]: yardstick, the split "
+              f"route on the same words (ntt_fwd_mont_canon B={P}, then "
+              f"ksk_mulacc) {split[0]:.4f} ms (min {split[1]:.4f}, max "
+              f"{split[2]:.4f})")
+    if preset not in ("silver", "gold"):
+        return
+    t = time.perf_counter()
+    (_, _, master), = mxu_ntt.master_plans(eng.ctx, dev, cache=False)
+    torch.cuda.synchronize()
+    print(f"{preset} MXU master plan ({master.num_channels} channels, "
+          f"digits ({master.dA}, {master.dB}), Montgomery recombination): "
+          f"{time.perf_counter() - t:.2f} s")
+    groups = (MxuGroup(0, C, master.slice(level, level + C)),)
+    S, R = master.S, master.R
+    x4 = random_words(pack.q, (4, C, N), gen, lazy=True)
+    x3 = random_words(pack.q, (3, C, N), gen, lazy=True)
+    for name, label, run, line, B in (
+            ("mxu_ntt_fwd_montrec", f"B=4 C={C} (the entry a pointwise op)",
+             lambda p: cuda_mxu.dispatch(x4, groups, plain=p), 143, 4),
+            ("mxu_ntt_inv_montrec",
+             f"B=3 C={C} (the exit and reduce pointwise ops)",
+             lambda p: cuda_mxu.dispatch(x3, groups, inverse=True, plain=p),
+             163, 3)):
+        check_case(name, f"{preset} {label}, master plan",
+                   lambda run=run: run(False), lambda run=run: run(True),
+                   bound(*mxu_ntt_work(groups, B, S, R)), rows,
+                   "liberate_tpu_torch/csrc/mxu_ntt.cu",
+                   f"liberate_tpu/ntt/mxu_pallas.py:{line}")
+    del master, groups
+
+
+def parity_phase(rows):
+    """The reference-parity engines (the JAX package's config switches):
+    at logN 8 the card's words against the CPU twins' (keys, ciphertext,
+    mult, rotation) for a butterfly engine with every chain Montgomery and
+    a tensor-core engine with use_mxu_pallas and the chains off; then at
+    silver one mult each through drive_path, with the counters zeroed
+    (decoded error < 1e-4, exactly the route's kernels, wall and busy):
+    the butterfly engine on its split and fused (unsplit) routes, the
+    tensor-core engine, and the modes that one flag alone reaches (#1's
+    canon on Shoup twiddles, #4's canon on Shoup twiddles, #4 on
+    Montgomery twiddles without the canon). Returns its seconds."""
+    import torch
+
+    import liberate_tpu_torch
+
+    t0 = time.perf_counter()
+    for domain, kw in (("butterfly parity", PARITY),
+                       ("MXU parity", PARITY_MXU)):
+        outs = []
+        for device in ("cuda:0", "cpu"):
+            e = liberate_tpu_torch.CkksEngine(device=device, **kw, **SMALL)
+            sk = e.create_secret_key()
+            pk = e.create_public_key(sk)
+            evk = e.create_evk(sk)
+            rotk = e.create_rotation_key(sk, 1)
+            m = (torch.arange(e.num_slots, dtype=torch.float64)
+                 / e.num_slots).numpy()
+            ct = e.encorypt(m, pk)
+            ctm = e.mult(ct, ct, evk)
+            err = abs(e.absmax_error(e.decrode(ctm, sk), m * m))
+            if not err < 1e-5:
+                raise AssertionError(f"logN 8 {domain} on {device}: mult "
+                                     f"error {err}")
+            outs.append([t.to("cpu") for t in tensors(
+                (sk, pk, evk, rotk, ct, ctm, e.rotate_single(ct, rotk)))])
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"logN 8 {domain}: the card's words differ "
+                                 f"from the CPU twins'")
+        print(f"logN 8 {domain} path: card and CPU twins give identical "
+              f"keys, ciphertext, mult and rotation words")
+    silver = liberate_tpu_torch.params["silver"]
+    for label, kw, per_mult in (
+            ("butterfly", PARITY, None),
+            ("butterfly unsplit", dict(PARITY, use_split_switch=False),
+             dict(ntt_fwd_mont=1, ntt_mulacc_mont_canon=1, ntt_inv_mont=2)),
+            ("MXU", PARITY_MXU, None),
+            ("butterfly Montgomery extension alone",
+             dict(use_shoup_extend=False), dict(ntt_fwd_canon=1)),
+            ("butterfly Montgomery extension alone unsplit",
+             dict(use_shoup_extend=False, use_split_switch=False),
+             dict(ntt_mulacc_canon=1)),
+            ("butterfly Montgomery twiddles alone unsplit",
+             dict(use_shoup_twiddles=False, use_split_switch=False),
+             dict(ntt_mulacc_mont=1))):
+        t = time.perf_counter()
+        e = liberate_tpu_torch.CkksEngine(**silver, seed=SEED, **kw)
+        print(f"{PARITY_LABEL} {label} engine: "
+              f"{time.perf_counter() - t:.2f} s")
+        drive_path(e, f"{PARITY_LABEL} {label}", rows, per_mult=per_mult)
+        del e
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t0
 
 
 def _fields_differ(a, b):
@@ -2529,6 +2771,9 @@ def preset_phase(preset, dev, gen, rows, scratch, new_phases, starts):
           f"{time.perf_counter() - t:.2f} s")
     kernel_phase(preset, eng, eng_mxu, gen, rows, False, scratch)
     t = time.perf_counter()
+    parity_kernel_phase(preset, eng, gen, rows, scratch)
+    new_phases[f"{preset} parity kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
     segment_phase(preset, eng_mxu, gen, rows, SEGMENTS[preset])
     new_phases[f"{preset} segments"] = time.perf_counter() - t
     if preset == "platinum":
@@ -2702,6 +2947,9 @@ def main():
                      opts.compile_yardstick and preset == "silver", scratch)
         ops_kernel_phase(preset, eng, eng_mxu, gen, rows, scratch)
         t = time.perf_counter()
+        parity_kernel_phase(preset, eng, gen, rows, scratch)
+        new_phases[f"{preset} parity kernels"] = time.perf_counter() - t
+        t = time.perf_counter()
         segment_phase(preset, eng_mxu, gen, rows, SEGMENTS[preset],
                       bcts=(4, 8) if preset == "silver" else (4,))
         new_phases[f"{preset} segments"] = time.perf_counter() - t
@@ -2802,6 +3050,8 @@ def main():
     del eng, eng_mxu, eng_mont, eng_unsplit, evk_mont, split, unsplit
     del split_ops, mxu, mxu_ops
     del engines["silver"]
+    torch.cuda.empty_cache()
+    new_phases[PARITY_LABEL] = parity_phase(rows)
     eng, eng_mxu = engines.pop("gold")
     for e, label in ((eng, "gold butterfly"), (eng_mxu, "gold MXU")):
         run = drive_path(e, label, rows)

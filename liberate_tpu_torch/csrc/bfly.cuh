@@ -1,11 +1,13 @@
 // The butterfly cluster transform's device code, shared by the forward
 // and inverse transforms (ntt.cu, kernels #1 and #2) and the unsplit
-// switch core (ntt_mulacc.cu, kernel #4): the launch geometry, the Shoup
-// butterflies, the register passes of four stages over a CTA's chunk in
-// swizzled shared memory, the cross-chunk columns through the cluster's
-// distributed shared memory, and the forward transform of one channel's
-// chunk (fwd_chunk), whose caller decides what becomes of the words it
-// leaves in shared memory. ntt.cu's header comment gives the design.
+// switch core (ntt_mulacc.cu, kernel #4): the launch geometry, the
+// butterflies with their twiddle multiply as a compile-time policy (Shoup
+// or Montgomery twiddles), the register passes of four stages over a CTA's
+// chunk in swizzled shared memory, the cross-chunk columns through the
+// cluster's distributed shared memory, and the forward transform of one
+// channel's chunk (fwd_chunk) with its entry multiply or canon pre-stage,
+// whose caller decides what becomes of the words it leaves in shared
+// memory. ntt.cu's header comment gives the design.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -127,79 +129,156 @@ __device__ __forceinline__ u64 cond_sub(u64 v, u64 m) {
   return (long long)d < 0 ? v : d;
 }
 
-// Words below 4q < 2^63 throughout (q < 2^61).
-__device__ __forceinline__ void ct(u64& a, u64& b, u64 w, u64 wp, u64 q,
-                                   u64 nq) {
-  const u64 U = a, V = shoup(b, w, wp, nq);
-  a = cond_sub(U + V, 2 * q);
-  b = cond_sub(U + 2 * q - V, 2 * q);
+// The twiddle multiply of the butterflies, a compile-time policy of every
+// kernel (no branch on the form inside a butterfly). ShoupTw: plain
+// twiddles and their Shoup quotients, two words a twiddle (the JAX
+// package's use_shoup_twiddles); MontTw: Montgomery-form twiddles, one word
+// a twiddle, multiplied as the reference's chain does (montmul(twiddle,
+// word)). Each holds one channel's bank and constants; scale() is the
+// entry or normalisation multiply by a per-channel constant (a, ap) in the
+// same form (ap unused by MontTw).
+struct ShoupTw {
+  static constexpr bool kMont = false;
+  const u64* __restrict__ w;
+  const u64* __restrict__ wp;
+  u64 q, nq;
+  struct T {
+    u64 w, wp;
+  };
+  // The bank and quotients of the channel at element offset off.
+  __device__ ShoupTw(const u64* w_, const u64* wp_, long long off, u64 q_)
+      : w(w_ + off), wp(wp_ + off), q(q_), nq(0 - q_) {}
+  __device__ __forceinline__ T at(int e) const {
+    return T{__ldg(w + e), __ldg(wp + e)};
+  }
+  // Entries e + kk and e + kk + 1 (even) in 16-byte loads; kk, a
+  // compile-time constant, goes into the loads' address offsets.
+  __device__ __forceinline__ void two(int e, int kk, T& a, T& b) const {
+    const ulonglong2 v =
+        __ldg(reinterpret_cast<const ulonglong2*>(w + e + kk));
+    const ulonglong2 vp =
+        __ldg(reinterpret_cast<const ulonglong2*>(wp + e + kk));
+    a = T{v.x, vp.x};
+    b = T{v.y, vp.y};
+  }
+  __device__ __forceinline__ u64 mul(u64 x, const T& t) const {
+    return shoup(x, t.w, t.wp, nq);
+  }
+  __device__ __forceinline__ u64 scale(u64 x, u64 a, u64 ap) const {
+    return shoup(x, a, ap, nq);
+  }
+};
+
+struct MontTw {
+  static constexpr bool kMont = true;
+  const u64* __restrict__ w;
+  u64 q, k;
+  typedef u64 T;
+  __device__ MontTw(const u64* w_, const u64*, long long off, u64 q_, u64 k_)
+      : w(w_ + off), q(q_), k(k_) {}
+  __device__ __forceinline__ T at(int e) const { return __ldg(w + e); }
+  __device__ __forceinline__ void two(int e, int kk, T& a, T& b) const {
+    const ulonglong2 v =
+        __ldg(reinterpret_cast<const ulonglong2*>(w + e + kk));
+    a = v.x;
+    b = v.y;
+  }
+  __device__ __forceinline__ u64 mul(u64 x, const T& t) const {
+    return montmul(t, x, q, k);
+  }
+  __device__ __forceinline__ u64 scale(u64 x, u64 a, u64) const {
+    return montmul(x, a, q, k);
+  }
+};
+
+// The policy of channel c (k = -q^-1 mod 2^62 for the Montgomery form).
+template <class TW>
+__device__ __forceinline__ TW twiddles(const u64* w, const u64* wp,
+                                       long long off, u64 q, u64 k) {
+  if constexpr (TW::kMont)
+    return TW(w, wp, off, q, k);
+  else
+    return TW(w, wp, off, q);
 }
 
-__device__ __forceinline__ void gs(u64& a, u64& b, u64 w, u64 wp, u64 q,
-                                   u64 nq) {
+// Words below 4q < 2^63 throughout (q < 2^61).
+template <class TW>
+__device__ __forceinline__ void ct(u64& a, u64& b, const typename TW::T& t,
+                                   const TW& tw) {
+  const u64 U = a, V = tw.mul(b, t);
+  a = cond_sub(U + V, 2 * tw.q);
+  b = cond_sub(U + 2 * tw.q - V, 2 * tw.q);
+}
+
+template <class TW>
+__device__ __forceinline__ void gs(u64& a, u64& b, const typename TW::T& t,
+                                   const TW& tw) {
   const u64 U = a, V = b;
-  b = shoup(cond_sub(U + 2 * q - V, 2 * q), w, wp, nq);
-  a = cond_sub(U + V, 2 * q);
+  b = tw.mul(cond_sub(U + 2 * tw.q - V, 2 * tw.q), t);
+  a = cond_sub(U + V, 2 * tw.q);
+}
+
+// The entry of a forward transform, applied to each word as it is read:
+// with CANON the canon pre-stage (a = R mod q, ap = k = -q^-1 mod 2^62:
+// the basis extension's signed words to [0, 2q) by a signed Montgomery
+// product and + 2q where negative; the JAX kernel's pre_canon, in either
+// twiddle form), else the Montgomery entry where `enter` (x R: TW's scale
+// by (a, ap), R mod q and its quotient, or R^2 mod q).
+struct Entry {
+  bool enter;
+  u64 a, ap;
+};
+
+template <bool CANON, class TW>
+__device__ __forceinline__ u64 entry(u64 x, const Entry& e, const TW& tw) {
+  if constexpr (CANON) {
+    const u64 r = montmul_signed(x, e.a, tw.q, e.ap);
+    return (long long)r < 0 ? r + 2 * tw.q : r;
+  } else {
+    return e.enter ? tw.scale(x, e.a, e.ap) : x;
+  }
 }
 
 // Stage s+I of the 2^R words x of one butterfly group of block g (its
 // index at stage s): word k is in sub-block k >> (R - I), whose twiddle
-// pair is entry 2^(s+I) + (g << I) + (k >> (R - I)) of the banks. The
-// stage's 2^I pairs are neighbours, read just before it (16 bytes at a
-// time from I = 1 on), so one stage's twiddles are in registers at a
-// time.
-template <int R, bool FWD, int I>
+// is entry 2^(s+I) + (g << I) + (k >> (R - I)) of the bank. The stage's
+// 2^I twiddles are neighbours, read just before it (16 bytes at a time
+// from I = 1 on), so one stage's twiddles are in registers at a time.
+template <int R, bool FWD, int I, class TW>
 __device__ __forceinline__ void stage(u64 (&x)[1 << R], int s, int g,
-                                      const u64* __restrict__ wc,
-                                      const u64* __restrict__ wpc, u64 q,
-                                      u64 nq) {
+                                      const TW& tw) {
   constexpr int W = 1 << R, kHalf = W >> (I + 1), kT = 1 << I;
   const int e = (1 << (s + I)) + (g << I);
-  u64 t[kT], tp[kT];
+  typename TW::T t[kT];
   if constexpr (I == 0) {
-    t[0] = __ldg(wc + e);
-    tp[0] = __ldg(wpc + e);
+    t[0] = tw.at(e);
   } else {
 #pragma unroll
-    for (int kk = 0; kk < kT; kk += 2) {
-      const ulonglong2 v =
-          __ldg(reinterpret_cast<const ulonglong2*>(wc + e + kk));
-      const ulonglong2 vp =
-          __ldg(reinterpret_cast<const ulonglong2*>(wpc + e + kk));
-      t[kk] = v.x;
-      t[kk + 1] = v.y;
-      tp[kk] = vp.x;
-      tp[kk + 1] = vp.y;
-    }
+    for (int kk = 0; kk < kT; kk += 2) tw.two(e, kk, t[kk], t[kk + 1]);
   }
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     if (k & kHalf) continue;
     if (FWD)
-      ct(x[k], x[k + kHalf], t[k >> (R - I)], tp[k >> (R - I)], q, nq);
+      ct(x[k], x[k + kHalf], t[k >> (R - I)], tw);
     else
-      gs(x[k], x[k + kHalf], t[k >> (R - I)], tp[k >> (R - I)], q, nq);
+      gs(x[k], x[k + kHalf], t[k >> (R - I)], tw);
   }
 }
 
-template <int R, bool FWD, int... I>
+template <int R, bool FWD, class TW, int... I>
 __device__ __forceinline__ void stages(u64 (&x)[1 << R], int s, int g,
-                                       const u64* __restrict__ wc,
-                                       const u64* __restrict__ wpc, u64 q,
-                                       u64 nq,
+                                       const TW& tw,
                                        std::integer_sequence<int, I...>) {
-  (stage<R, FWD, FWD ? I : R - 1 - I>(x, s, g, wc, wpc, q, nq), ...);
+  (stage<R, FWD, FWD ? I : R - 1 - I>(x, s, g, tw), ...);
 }
 
 // Stages s .. s+R-1 (forward, Cooley-Tukey) or s+R-1 .. s (inverse,
 // Gentleman-Sande) on the 2^R words of one butterfly group of block g.
-template <int R, bool FWD>
+template <int R, bool FWD, class TW>
 __device__ __forceinline__ void network(u64 (&x)[1 << R], int s, int g,
-                                        const u64* __restrict__ wc,
-                                        const u64* __restrict__ wpc, u64 q,
-                                        u64 nq) {
-  stages<R, FWD>(x, s, g, wc, wpc, q, nq,
-                 std::make_integer_sequence<int, R>{});
+                                        const TW& tw) {
+  stages<R, FWD>(x, s, g, tw, std::make_integer_sequence<int, R>{});
 }
 
 enum Io { kShared = 0, kFromGlobal = 1 };
@@ -226,18 +305,15 @@ __device__ __forceinline__ void team_sync(int teams) {
 // blockDim.x being powers of two). kFromGlobal (inverse, first pass)
 // reads the 2^R neighbouring words of a group (r0 = logM - R) from device
 // memory.
-template <int R, bool FWD, int IO>
+template <int R, bool FWD, int IO, class TW>
 __device__ __forceinline__ void local(int teams, u64* sh, int logM, int r0,
-                                      int logK, int rank,
-                                      const u64* __restrict__ wc,
-                                      const u64* __restrict__ wpc, u64 q,
+                                      int logK, int rank, const TW& tw,
                                       const u64* src) {
   constexpr int W = 1 << R;
   const int logt = logM - r0 - R;
   const int lt = __ffs(teams) - 1, size = blockDim.x >> lt;
   const int lo = (threadIdx.x >> (__ffs(size) - 1)) << (logM - R - lt);
   const int end = lo + (1 << (logM - R - lt));
-  const u64 nq = 0 - q;
 #pragma unroll 1
   for (int g = lo + (threadIdx.x & (size - 1)); g < end; g += size) {
     const int blk = g >> logt;
@@ -257,7 +333,7 @@ __device__ __forceinline__ void local(int teams, u64* sh, int logM, int r0,
 #pragma unroll
       for (int k = 0; k < W; ++k) x[k] = sh[swz(base) ^ swz(k << logt)];
     }
-    network<R, FWD>(x, logK + r0, (rank << r0) + blk, wc, wpc, q, nq);
+    network<R, FWD>(x, logK + r0, (rank << r0) + blk, tw);
 #pragma unroll
     for (int k = 0; k < W; ++k) sh[swz(base) ^ swz(k << logt)] = x[k];
   }
@@ -265,26 +341,22 @@ __device__ __forceinline__ void local(int teams, u64* sh, int logM, int r0,
 
 // The first local pass (R = 1 .. kPass stages from local stage 0) over
 // the whole CTA.
-template <bool FWD>
+template <bool FWD, class TW>
 __device__ __forceinline__ void local_first(int R, u64* sh, int logM,
-                                            int logK, int rank, const u64* wc,
-                                            const u64* wpc, u64 q) {
+                                            int logK, int rank,
+                                            const TW& tw) {
   switch (R) {
     case 1:
-      local<1, FWD, kShared>(1, sh, logM, 0, logK, rank, wc, wpc, q,
-                             nullptr);
+      local<1, FWD, kShared>(1, sh, logM, 0, logK, rank, tw, nullptr);
       break;
     case 2:
-      local<2, FWD, kShared>(1, sh, logM, 0, logK, rank, wc, wpc, q,
-                             nullptr);
+      local<2, FWD, kShared>(1, sh, logM, 0, logK, rank, tw, nullptr);
       break;
     case 3:
-      local<3, FWD, kShared>(1, sh, logM, 0, logK, rank, wc, wpc, q,
-                             nullptr);
+      local<3, FWD, kShared>(1, sh, logM, 0, logK, rank, tw, nullptr);
       break;
     default:
-      local<4, FWD, kShared>(1, sh, logM, 0, logK, rank, wc, wpc, q,
-                             nullptr);
+      local<4, FWD, kShared>(1, sh, logM, 0, logK, rank, tw, nullptr);
   }
 }
 
@@ -334,24 +406,21 @@ struct Cross {
 };
 
 // The forward transform of one channel's N words at src (natural order,
-// Cooley-Tukey, bit-reversed lazy [0, 2q) output), entered first by the
-// Shoup multiply (a, ap) when `enter`: CTA `rank` of the cluster is left
+// Cooley-Tukey, bit-reversed lazy [0, 2q) output), each word through the
+// entry `pre` first: CTA `rank` of the cluster is left
 // with words rank * M .. rank * M + M - 1 of the output in its shared
 // memory sh, word i at swz(i), behind a CTA barrier. `again`: the CTAs
 // ran a transform before into the same shared memory and may still be
 // reading its words; the first cluster barrier then releases those reads
 // before any peer writes (at K = 1, a CTA barrier).
-template <int LOGK, int FOLD>
+template <int LOGK, int FOLD, bool CANON, class TW>
 __device__ __forceinline__ void fwd_chunk(const Geometry& geo, u64* sh,
                                           const u64* src, int rank,
-                                          const u64* __restrict__ wc,
-                                          const u64* __restrict__ wpc, u64 q,
-                                          bool enter, u64 a, u64 ap,
+                                          const TW& tw, const Entry& pre,
                                           bool again) {
   using X = Cross<LOGK, FOLD>;
   constexpr int W = X::W;
   const int logM = geo.logM, M = 1 << logM, t = M >> FOLD;
-  const u64 nq = 0 - q;
 
   // A peer's shared memory may be written once every CTA has started (and
   // has read its last transform's words).
@@ -379,15 +448,15 @@ __device__ __forceinline__ void fwd_chunk(const Geometry& geo, u64* sh,
       if (h + it >= cols) break;
 #pragma unroll
       for (int i = 0; i < W; ++i) {
-        v[it][i] = src[j0 + (h + it) * blockDim.x + (long long)i * t];
-        if (enter) v[it][i] = shoup(v[it][i], a, ap, nq);
+        v[it][i] = entry<CANON>(
+            src[j0 + (h + it) * blockDim.x + (long long)i * t], pre, tw);
       }
     }
     if constexpr (W > 1) {
 #pragma unroll
       for (int it = 0; it < kBatch; ++it) {
         if (h + it >= cols) break;
-        network<LOGK + FOLD, true>(v[it], 0, 0, wc, wpc, q, nq);
+        network<LOGK + FOLD, true>(v[it], 0, 0, tw);
       }
     }
     if constexpr (LOGK > 0) {
@@ -410,13 +479,13 @@ __device__ __forceinline__ void fwd_chunk(const Geometry& geo, u64* sh,
   // stages the columns did not run, then the passes of four, each team on
   // its part.
   if constexpr (FOLD == 0) {
-    local_first<true>(geo.first, sh, logM, LOGK, rank, wc, wpc, q);
+    local_first<true>(geo.first, sh, logM, LOGK, rank, tw);
     __syncthreads();
   }
   for (int r0 = geo.first; r0 < logM; r0 += kPass) {
     if (r0 > geo.first) team_sync(geo.teams);
-    local<kPass, true, kShared>(geo.teams, sh, logM, r0, LOGK, rank, wc,
-                                wpc, q, nullptr);
+    local<kPass, true, kShared>(geo.teams, sh, logM, r0, LOGK, rank, tw,
+                                nullptr);
   }
   __syncthreads();
 }

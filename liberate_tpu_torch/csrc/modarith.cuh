@@ -22,17 +22,31 @@ __device__ __forceinline__ u64 csub(u64 v, u64 m) {
   return ((long long)v < (long long)m) ? v : v - m;
 }
 
-// Montgomery product a*b*2^-62 mod q for a, b < 2^62, lazy in [0, 2q).
-// k = -q^-1 mod 2^62. This is the exact REDC (a*b + m*q) / 2^62 with
-// m = a*b*k mod 2^62, which is the value the reference's 31-bit half-limb
-// chain computes, bit for bit.
-__device__ __forceinline__ u64 montmul(u64 a, u64 b, u64 q, u64 k) {
+// (a*b + m*q) / 2^62 with m = a*b*k mod 2^62, given the high half hi of
+// the 128-bit product a*b.
+__device__ __forceinline__ u64 redc_of(u64 a, u64 b, u64 hi, u64 q, u64 k) {
   const u64 lo = a * b;
-  const u64 hi = __umul64hi(a, b);
   const u64 m = (lo * k) & ((1ULL << 62) - 1);
   const u64 mlo = m * q;
   const u64 mhi = __umul64hi(m, q);
   const u64 slo = lo + mlo;
   const u64 shi = hi + mhi + (slo < lo ? 1ULL : 0ULL);
   return (shi << 2) | (slo >> 62);
+}
+
+// Montgomery product a*b*2^-62 mod q for a, b < 2^62, lazy in [0, 2q).
+// k = -q^-1 mod 2^62. This is the exact REDC (a*b + m*q) / 2^62 with
+// m = a*b*k mod 2^62, which is the value the reference's 31-bit half-limb
+// chain computes, bit for bit.
+__device__ __forceinline__ u64 montmul(u64 a, u64 b, u64 q, u64 k) {
+  return redc_of(a, b, __umul64hi(a, b), q, k);
+}
+
+// The same for a two's-complement a (|a| < 2^62, wrapped negatives among
+// them) and 0 <= b < 2^62: the exact signed REDC, (a*b + m*q) / 2^62 with
+// the product signed, which is what the reference's half-limb chain gives
+// with its arithmetic shifts (liberate_tpu/ntt/u64.py montmul_signed). The
+// result may be negative.
+__device__ __forceinline__ u64 montmul_signed(u64 a, u64 b, u64 q, u64 k) {
+  return redc_of(a, b, (u64)__mul64hi((long long)a, (long long)b), q, k);
 }

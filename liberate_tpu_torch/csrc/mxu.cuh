@@ -23,6 +23,11 @@
 // over the planes, a Barrett reduction of the low part and a Shoup product
 // of the high part (both offset by 2^63), a per-channel correction and two
 // conditional subtracts; the same words as the Pallas kernels, bit for bit.
+// The transform stages also take its Montgomery form (shoup_rec=False, and
+// liberate_tpu/ntt/mxu_ntt.py `_recombine` :440 of the XLA composition), a
+// compile-time choice (MR): a signed Montgomery product of each part by
+// c_lo = R mod q and c_hi = 2^(8 kSplit) R mod q, their sum and one
+// conditional subtract of 2q.
 //
 // What bounds a stage on the H100: by the operation count, the int8
 // multiply-accumulates (O*J*K*DA*DB per channel and batch element, against
@@ -152,6 +157,7 @@ struct Stage {
   const u64* tw;        // [C, N] Montgomery-form twiddles (kTwiddle)
   int tw_t;             // twiddle of (o, j) at tw[j*O + o] (else o*J + j)
   const u64 *q, *k, *bp, *whi, *wphi, *corr;  // [C]
+  const u64 *clo, *chi;  // [C] the Montgomery recombination's weights
   int post_reduce;      // kOut: [0, 2q) -> [0, q)
   // kKsk / kKskMont: key products with both key halves, summed over P
   // parts of each segment (k0wp, k1wp: the Shoup quotients, kKsk only)
@@ -185,6 +191,38 @@ __device__ __forceinline__ u64 recombine(const int (&e)[DA], u64 q, u64 bp,
   r += corr;  // < 5q
   r = csub_u(r, 4 * q);
   return csub_u(r, 2 * q);
+}
+
+// The same in the Montgomery form: V_lo c_lo R^-1 + V_hi c_hi R^-1 in
+// [0, 2q) by two signed Montgomery products (one when DA <= kSplit, and
+// then no subtract, as the reference).
+template <int DA>
+__device__ __forceinline__ u64 recombine_mont(const int (&e)[DA], u64 q,
+                                              u64 k, u64 clo, u64 chi) {
+  constexpr int L = DA < kSplit ? DA : kSplit;
+  u64 v = (u64)(long long)e[L - 1];
+#pragma unroll
+  for (int u = L - 2; u >= 0; --u) v = (v << 8) + (u64)(long long)e[u];
+  u64 r = montmul_signed(v, clo, q, k);
+  if (DA > kSplit) {
+    u64 h = (u64)(long long)e[DA - 1];
+#pragma unroll
+    for (int u = DA - 2; u >= kSplit; --u)
+      h = (h << 8) + (u64)(long long)e[u];
+    r = csub_u(r + montmul_signed(h, chi, q, k), 2 * q);
+  }
+  return r;
+}
+
+// The recombination of a stage: recombine, or with MR recombine_mont with
+// (k, c_lo, c_hi) in the places of (bp, whi, wphi).
+template <int DA, bool MR>
+__device__ __forceinline__ u64 rec(const int (&e)[DA], u64 q, u64 bp, u64 whi,
+                                   u64 wphi, u64 corr) {
+  if constexpr (MR)
+    return recombine_mont<DA>(e, q, bp, whi, wphi);
+  else
+    return recombine<DA>(e, q, bp, whi, wphi, corr);
 }
 
 // Byte v of four words, offset by -128 into int8, packed into one word
@@ -395,8 +433,9 @@ __device__ __forceinline__ void produce(const Stage& a, const Smem<D, EPI>& sm,
 
 // A consumer warpgroup (wg 0 or 1: columns wg*64.. of the tile): per
 // window the digit fragments of its X words, per ring stage one wgmma per
-// table plane, then per part the recombination and the epilogue.
-template <int D, int IN, int EPI>
+// table plane, then per part the recombination (MR: its Montgomery form)
+// and the epilogue.
+template <int D, int IN, int EPI, bool MR = false>
 __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
                                         int b, int j0, int o0, int c, int wg) {
   constexpr int R = ring<D, EPI>();
@@ -419,8 +458,13 @@ __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
   u64 sum0[NF][2][2], sum1[NF][2][2];  // kSum: [fragment][row half][col]
   int it = 0, win = 0, pending = -1;
   const int* rs = a.rs + (size_t)c * D * a.O;
-  const u64 q = a.q[c], bp = a.bp[c];
-  const u64 whi = a.whi[c], wphi = a.wphi[c], corr = a.corr[c];
+  const u64 q = a.q[c];
+  // The recombination's constants: (bp, whi, wphi, corr), or with MR
+  // (k, c_lo, c_hi) in the first three.
+  const u64 bp = MR ? a.k[c] : a.bp[c];
+  const u64 whi = MR ? a.clo[c] : a.whi[c];
+  const u64 wphi = MR ? a.chi[c] : a.wphi[c];
+  const u64 corr = MR ? 0 : a.corr[c];
   for (int p = 0; p < nparts; ++p) {
     bool first = true;
     for (int k0 = 0; k0 < a.K; k0 += KW, ++win) {
@@ -515,7 +559,7 @@ __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
 #pragma unroll
             for (int u = 0; u < D; ++u)
               ev[u] = acc[u][4 * i + 2 * h + e] + r[u];
-            const u64 val = recombine<D>(ev, q, bp, whi, wphi, corr);
+            const u64 val = rec<D, MR>(ev, q, bp, whi, wphi, corr);
             const long long ki =
                 p * a.k_sp + c * a.k_sc + (long long)o * a.J + j;
             u64 p0, p1;
@@ -563,7 +607,7 @@ __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
 #pragma unroll
           for (int u = 0; u < D; ++u)
             ev[u] = acc[u][4 * i + 2 * h + e] + r[e][u];
-          u64 val = recombine<D>(ev, q, bp, whi, wphi, corr);
+          u64 val = rec<D, MR>(ev, q, bp, whi, wphi, corr);
           if (EPI == kTwiddle) val = montmul(val, tw[m], q, a.k[c]);
           if (EPI == kOut && a.post_reduce) val = csub_u(val, q);
           if (ok[m]) a.y[b * a.y_sb + c * a.y_sc + n[m]] = val;
@@ -596,7 +640,7 @@ __device__ __forceinline__ void consume(const Stage& a, const Smem<D, EPI>& sm,
 // P parts of its segment);
 // kThreads threads: the two consumer warpgroups, then the producer
 // warpgroup.
-template <int D, int IN, int EPI>
+template <int D, int IN, int EPI, bool MR = false>
 __global__ void __launch_bounds__(kThreads, 1)
     stage(const __grid_constant__ Stage a) {
   constexpr int R = ring<D, EPI>();
@@ -623,7 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 256) produce<D, IN, EPI>(a, sm, b, j0, o0, c);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume<D, IN, EPI>(a, sm, b, j0, o0, c, threadIdx.x >> 7);
+    consume<D, IN, EPI, MR>(a, sm, b, j0, o0, c, threadIdx.x >> 7);
   }
 }
 
@@ -699,7 +743,7 @@ inline int encode_words(CUtensorMap* map, const Stage& a, int IN, int C,
                 box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <int D, int IN, int EPI>
+template <int D, int IN, int EPI, bool MR>
 int launch_d(Stage a, int B, int C, cudaStream_t st) {
   constexpr int TO = tile_o<D, EPI>();
   constexpr bool kSum = key_sums<EPI>();
@@ -709,22 +753,22 @@ int launch_d(Stage a, int B, int C, cudaStream_t st) {
   const dim3 grid(B * ((a.J + kTileJ - 1) / kTileJ),
                   (a.O + TO - 1) / TO, C);
   constexpr int smem = stage_smem<D, EPI>();
-  rc = (int)cudaFuncSetAttribute(stage<D, IN, EPI>,
+  rc = (int)cudaFuncSetAttribute(stage<D, IN, EPI, MR>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
   if (rc != 0) return rc;
-  stage<D, IN, EPI><<<grid, kThreads, smem, st>>>(a);
+  stage<D, IN, EPI, MR><<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Digit counts with kernels: (4, 4) for 30-bit primes, (6, 6) for 40-bit,
-// (8, 8) for 60-bit. -1 for any other.
-template <int IN, int EPI>
+// (8, 8) for 60-bit. -1 for any other. MR: the Montgomery recombination.
+template <int IN, int EPI, bool MR = false>
 int launch(int d, const Stage& a, int B, int C, cudaStream_t st) {
   switch (d) {
-    case 4: return launch_d<4, IN, EPI>(a, B, C, st);
-    case 6: return launch_d<6, IN, EPI>(a, B, C, st);
-    case 8: return launch_d<8, IN, EPI>(a, B, C, st);
+    case 4: return launch_d<4, IN, EPI, MR>(a, B, C, st);
+    case 6: return launch_d<6, IN, EPI, MR>(a, B, C, st);
+    case 8: return launch_d<8, IN, EPI, MR>(a, B, C, st);
     default: return -1;
   }
 }

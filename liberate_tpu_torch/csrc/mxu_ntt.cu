@@ -3,8 +3,11 @@
 //
 // Replaces: liberate_tpu/ntt/mxu_pallas.py `_ntt_kernel` (:143) and
 // `_intt_kernel` (:163), launched per width group by `_call` (:190) and
-// `dispatch` (:312), with the Shoup recombination (shoup_rec=True), the
-// `enter` (Montgomery entry folded into stage 1: the m1e tables), `exitx`
+// `dispatch` (:312), with the Shoup recombination (shoup_rec=True) or the
+// Montgomery one (shoup_rec=False, as the XLA composition
+// liberate_tpu/ntt/mxu_ntt.py `ntt` and `intt_no_norm_factor` :494-540,
+// which the JAX engine runs with use_mxu_pallas off), the `enter`
+// (Montgomery entry folded into stage 1: the m1e tables), `exitx`
 // (Montgomery exit folded into stage 2: the i2x tables) and `post_reduce`
 // variants. Same words as the Pallas kernels.
 //
@@ -33,7 +36,9 @@ using mxu::Stage;
 // x: [B, C, N] words with element strides (sb, sc, 1); y: output with
 // strides (ysb, ysc, 1); scratch: contiguous [B, C, N]. t1/r1, tw, t2/r2:
 // the group's stage tables (the caller picks m1 or m1e, i2 or i2x).
-// Per-channel constants q, k, bp, whi, wphi, corr: [C]. d = dA = dB.
+// Per-channel constants q, k, bp, whi, wphi, corr, clo, chi: [C]. d = dA =
+// dB. mont_rec: recombine in the Montgomery form (clo, chi), else in the
+// Shoup form (bp, whi, wphi, corr).
 extern "C" int ltt_mxu_ntt(int inverse, int d, const void* x, long long sb,
                            long long sc, void* y, long long ysb,
                            long long ysc, void* scratch, int B, int C,
@@ -41,7 +46,9 @@ extern "C" int ltt_mxu_ntt(int inverse, int d, const void* x, long long sb,
                            const void* tw, const void* t2, const void* r2,
                            const void* q, const void* k, const void* bp,
                            const void* whi, const void* wphi,
-                           const void* corr, int post_reduce, void* stream) {
+                           const void* corr, const void* clo,
+                           const void* chi, int mont_rec, int post_reduce,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int N = 1 << logN;
   const int S = 1 << ((logN + 1) / 2);
@@ -67,7 +74,11 @@ extern "C" int ltt_mxu_ntt(int inverse, int d, const void* x, long long sb,
   a.whi = (const u64*)whi;
   a.wphi = (const u64*)wphi;
   a.corr = (const u64*)corr;
-  int rc = mxu::launch<mxu::kRows, mxu::kTwiddle>(d, a, B, C, st);
+  a.clo = (const u64*)clo;
+  a.chi = (const u64*)chi;
+  int rc = mont_rec
+               ? mxu::launch<mxu::kRows, mxu::kTwiddle, true>(d, a, B, C, st)
+               : mxu::launch<mxu::kRows, mxu::kTwiddle>(d, a, B, C, st);
   if (rc != 0) return rc;
 
   Stage b = a;
@@ -83,7 +94,8 @@ extern "C" int ltt_mxu_ntt(int inverse, int d, const void* x, long long sb,
   b.rs = (const int*)r2;
   b.tw = nullptr;
   b.post_reduce = post_reduce;
-  return mxu::launch<mxu::kCols, mxu::kOut>(d, b, B, C, st);
+  return mont_rec ? mxu::launch<mxu::kCols, mxu::kOut, true>(d, b, B, C, st)
+                  : mxu::launch<mxu::kCols, mxu::kOut>(d, b, B, C, st);
 }
 
 // The stage kernel's geometry at d digits (see mxu::geometry_d): 12 ints

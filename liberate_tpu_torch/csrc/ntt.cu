@@ -1,20 +1,22 @@
 // Forward and inverse negacyclic NTT over a batch [B, C, N] of 62-bit words.
 //
 // Replaces: liberate_tpu/ntt/pallas_ntt.py `_ntt_kernel` (:534) and
-// `_intt_kernel` (:577) with Shoup-form twiddles (the Pallas plan's default,
-// use_shoup_twiddles), the inverse's no_norm mode (:1112) among them.
-// Same butterfly network, same lazy [0, 2q) representatives: Cooley-Tukey
-// forward with natural-order input and bit-reversed output, Gentleman-Sande
-// inverse, twiddle of stage s and block b at bank entry 2^s + b. Only the
-// order in which independent butterflies run differs from the twins
-// (ntt/cuda_ntt.py).
+// `_intt_kernel` (:577) in both twiddle forms (the plan's: Shoup-form
+// twiddles, use_shoup_twiddles, or Montgomery-form ones, `_tw_mul` :124),
+// the forward's pre_enter and pre_canon modes (:541-563) and the
+// inverse's no_norm mode (:1112) among them. Same butterfly network, same
+// lazy [0, 2q) representatives: Cooley-Tukey forward with natural-order
+// input and bit-reversed output, Gentleman-Sande inverse, twiddle of stage
+// s and block b at bank entry 2^s + b. Only the order in which independent
+// butterflies run differs from the twins (ntt/cuda_ntt.py).
 //
 // What bounds it on the H100: the 64-bit integer arithmetic on the CUDA
 // cores. Each butterfly is one Shoup product (sixteen 32-bit
-// multiply-adds) and two conditional subtracts, N/2 * logN of them per
-// polynomial; a transform moves each word through device memory once
-// (16 bytes a word) plus the channel's twiddles and quotients (16 bytes a
-// word, shared by the batch). Measured (bfly_variants.py): the same
+// multiply-adds; a Montgomery product with Montgomery twiddles) and two
+// conditional subtracts, N/2 * logN of them per polynomial; a transform
+// moves each word through device memory once (16 bytes a word) plus the
+// channel's twiddles and quotients (16 bytes a word, 8 with Montgomery
+// twiddles, shared by the batch). Measured (bfly_variants.py): the same
 // butterflies with every load and store of words and twiddles removed
 // take about 80 % of the kernel's time at gold.
 //
@@ -54,6 +56,12 @@
 //   channel's twiddles come from device memory about once and then from
 //   L2.
 //
+// - The twiddle form is a template policy (bfly.cuh ShoupTw, MontTw): each
+//   kernel is built in both, and the launch picks the plan's; the
+//   forward's canon pre-stage is a template flag too. The Montgomery
+//   entry and the inverse's Montgomery exit are per-launch modes outside
+//   the butterflies.
+//
 // The device code of the transform is in bfly.cuh, which the unsplit
 // switch core (ntt_mulacc.cu) shares: this file holds the kernels, their
 // epilogues and their launches.
@@ -64,14 +72,16 @@ namespace {
 using namespace bfly;
 
 // x: [B, C, N] with element strides (sb, sc, 1); y: contiguous [B, C, N].
-// Block (b * K + k, c) is CTA k of the cluster of channel (b, c).
-template <int LOGK, int FOLD>
+// Block (b * K + k, c) is CTA k of the cluster of channel (b, c). CANON:
+// the canon pre-stage by s; else the Montgomery entry by s (and sp for a
+// Shoup entry) where `enter`.
+template <int LOGK, int FOLD, class TW, bool CANON>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ntt_fwd_cluster(const u64* __restrict__ x, long long sb, long long sc,
                     u64* __restrict__ y, int logN, const u64* __restrict__ w,
                     const u64* __restrict__ wp, const u64* __restrict__ qv,
-                    const u64* __restrict__ ew, const u64* __restrict__ ewp,
-                    int post_reduce) {
+                    const u64* __restrict__ kv, const u64* __restrict__ s,
+                    const u64* __restrict__ sp, int enter, int post_reduce) {
   extern __shared__ __align__(16) u64 sh[];
   constexpr int K = 1 << LOGK;
   const Geometry geo = geometry(logN);
@@ -80,10 +90,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int b = blockIdx.x >> LOGK, c = blockIdx.y;
   const long long N = 1LL << logN;
   const u64 q = qv[c];
-  const bool enter = ew != nullptr;
-  fwd_chunk<LOGK, FOLD>(geo, sh, x + b * sb + c * sc, rank, w + c * N,
-                        wp + c * N, q, enter, enter ? ew[c] : 0,
-                        enter ? ewp[c] : 0, false);
+  const TW tw = twiddles<TW>(w, wp, c * N, q, kv[c]);
+  const Entry e{enter != 0, s ? s[c] : 0, CANON ? kv[c] : sp ? sp[c] : 0};
+  fwd_chunk<LOGK, FOLD, CANON>(geo, sh, x + b * sb + c * sc, rank, tw, e,
+                               false);
 
   // The chunk to device memory in coalesced 16-byte stores, reduced if
   // asked.
@@ -100,14 +110,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 }
 
 // x: [B, C, N] with element strides (sb, sc, 1), 16-byte aligned rows;
-// y: contiguous [B, C, N]. nw, nwp: the final Shoup multiply, or null for
-// none (the no-normalise mode: lazy [0, 2q) words of the last stage).
-template <int LOGK, int FOLD>
+// y: contiguous [B, C, N]. nw, nwp: the final normalisation multiply (TW's
+// scale), or null for none (the no-normalise mode: lazy [0, 2q) words of
+// the last stage); post_exit: a Montgomery reduce after it.
+template <int LOGK, int FOLD, class TW>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ntt_inv_cluster(const u64* __restrict__ x, long long sb, long long sc,
                     u64* __restrict__ y, int logN, const u64* __restrict__ w,
                     const u64* __restrict__ wp, const u64* __restrict__ qv,
-                    const u64* __restrict__ nw, const u64* __restrict__ nwp,
+                    const u64* __restrict__ kv, const u64* __restrict__ nw,
+                    const u64* __restrict__ nwp, int post_exit,
                     int post_reduce) {
   extern __shared__ __align__(16) u64 sh[];
   using X = Cross<LOGK, FOLD>;
@@ -117,9 +129,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int rank = blockIdx.x & (K - 1);
   const int b = blockIdx.x >> LOGK, c = blockIdx.y;
   const long long N = 1LL << logN;
-  const u64 q = qv[c], nq = 0 - q;
-  const u64* wc = w + c * N;
-  const u64* wpc = wp + c * N;
+  const u64 q = qv[c];
+  const TW tw = twiddles<TW>(w, wp, c * N, q, kv[c]);
   const u64* src = x + b * sb + c * sc + (long long)rank * M;
   u64* dst = y + ((long long)b * gridDim.y + c) * N;
 
@@ -127,16 +138,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // its part, the first from device memory; then a last pass over the CTA
   // for the stages the columns do not run.
   int r0 = logM - kPass;
-  local<kPass, false, kFromGlobal>(geo.teams, sh, logM, r0, LOGK, rank, wc,
-                                   wpc, q, src);
+  local<kPass, false, kFromGlobal>(geo.teams, sh, logM, r0, LOGK, rank, tw,
+                                   src);
   for (r0 -= kPass; r0 >= geo.first; r0 -= kPass) {
     team_sync(geo.teams);
-    local<kPass, false, kShared>(geo.teams, sh, logM, r0, LOGK, rank, wc,
-                                 wpc, q, nullptr);
+    local<kPass, false, kShared>(geo.teams, sh, logM, r0, LOGK, rank, tw,
+                                 nullptr);
   }
   if constexpr (FOLD == 0) {
     __syncthreads();
-    local_first<false>(geo.first, sh, logM, LOGK, rank, wc, wpc, q);
+    local_first<false>(geo.first, sh, logM, LOGK, rank, tw);
   }
 
   if constexpr (LOGK > 0)
@@ -150,7 +161,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int cols = (t >> LOGK) / blockDim.x;
   const int j0 = rank * (t >> LOGK) + threadIdx.x;
   const bool norm = nw != nullptr;
-  const u64 a = norm ? nw[c] : 0, ap = norm ? nwp[c] : 0;
+  const u64 a = norm ? nw[c] : 0, ap = nwp ? nwp[c] : 0;
   constexpr int kBatch = 4 * kMaxColumn / W;
 #pragma unroll 1
   for (int h = 0; h < cols; h += kBatch) {
@@ -166,10 +177,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int it = 0; it < kBatch; ++it) {
       if (h + it >= cols) break;
       if constexpr (W > 1)
-        network<LOGK + FOLD, false>(v[it], 0, 0, wc, wpc, q, nq);
+        network<LOGK + FOLD, false>(v[it], 0, 0, tw);
 #pragma unroll
       for (int i = 0; i < W; ++i) {
-        u64 o = norm ? shoup(v[it][i], a, ap, nq) : v[it][i];
+        u64 o = norm ? tw.scale(v[it][i], a, ap) : v[it][i];
+        // A Shoup plan's normalisation constant carries the exit.
+        if constexpr (TW::kMont) {
+          if (post_exit) o = montmul(o, 1, q, tw.k);
+        }
         if (post_reduce) o = cond_sub(o, q);
         dst[j0 + (h + it) * blockDim.x + (long long)i * t] = o;
       }
@@ -180,45 +195,55 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
 typedef void (*Kernel)(const u64*, long long, long long, u64*, int,
                        const u64*, const u64*, const u64*, const u64*,
-                       const u64*, int);
+                       const u64*, const u64*, int, int);
 
-template <int LOGK, int FOLD>
+template <int LOGK, int FOLD, class TW, bool CANON>
 Kernel kernel(bool fwd) {
-  return fwd ? ntt_fwd_cluster<LOGK, FOLD> : ntt_inv_cluster<LOGK, FOLD>;
+  return fwd ? ntt_fwd_cluster<LOGK, FOLD, TW, CANON>
+             : ntt_inv_cluster<LOGK, FOLD, TW>;
 }
 
-// The kernels of the (logK, fold) pairs of logN 8-17.
+// The kernels of the (logK, fold) pairs of logN 8-17 in the twiddle form
+// TW (the forward with the canon pre-stage where CANON).
+template <class TW, bool CANON>
 Kernel kernel_of(const Geometry& g, bool fwd) {
   switch (g.logK * 8 + g.fold) {
-    case 0: return kernel<0, 0>(fwd);
-    case 1: return kernel<0, 1>(fwd);
-    case 2: return kernel<0, 2>(fwd);
-    case 3: return kernel<0, 3>(fwd);
-    case 8 + 2: return kernel<1, 2>(fwd);
-    case 24 + 0: return kernel<3, 0>(fwd);
+    case 0: return kernel<0, 0, TW, CANON>(fwd);
+    case 1: return kernel<0, 1, TW, CANON>(fwd);
+    case 2: return kernel<0, 2, TW, CANON>(fwd);
+    case 3: return kernel<0, 3, TW, CANON>(fwd);
+    case 8 + 2: return kernel<1, 2, TW, CANON>(fwd);
+    case 24 + 0: return kernel<3, 0, TW, CANON>(fwd);
     default: return nullptr;
   }
 }
 
-// One cluster launch: checks once per direction and logN that a cluster
-// of K CTAs with the chunk's shared memory can be scheduled.
+// One cluster launch: checks once per kernel and logN that a cluster of K
+// CTAs with the chunk's shared memory can be scheduled. wp null:
+// Montgomery twiddles. mode: the forward's entry (0 none, 1 the Montgomery
+// entry, 2 the canon pre-stage) or the inverse's Montgomery exit.
 int launch(bool fwd, const void* x, long long sb, long long sc, void* y,
            int B, int C, int logN, const void* w, const void* wp,
-           const void* q, const void* s, const void* sp, int post_reduce,
-           void* stream) {
+           const void* q, const void* k, const void* s, const void* sp,
+           int mode, int post_reduce, void* stream) {
   if (logN < kMinLogN || logN > kMaxLogN) return -1;
-  static bool checked[2][kMaxLogN + 1];
+  static bool checked[2][2][2][kMaxLogN + 1];
+  const bool mont = wp == nullptr, canon = fwd && mode == 2;
   const Geometry g = geometry(logN);
-  const Kernel kern = kernel_of(g, fwd);
+  const Kernel kern =
+      mont ? (canon ? kernel_of<MontTw, true>(g, fwd)
+                    : kernel_of<MontTw, false>(g, fwd))
+           : (canon ? kernel_of<ShoupTw, true>(g, fwd)
+                    : kernel_of<ShoupTw, false>(g, fwd));
   if (kern == nullptr) return -1;
   ClusterLaunch l;
   int rc = l.init((const void*)kern, g, (unsigned)B, (unsigned)C, stream,
-                  checked[fwd][logN]);
+                  checked[mont][canon][fwd][logN]);
   if (rc != 0) return rc;
   rc = (int)cudaLaunchKernelEx(
       &l.cfg, kern, (const u64*)x, sb, sc, (u64*)y, logN, (const u64*)w,
-      (const u64*)wp, (const u64*)q, (const u64*)s, (const u64*)sp,
-      post_reduce);
+      (const u64*)wp, (const u64*)q, (const u64*)k, (const u64*)s,
+      (const u64*)sp, canon ? 0 : mode, post_reduce);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -226,29 +251,36 @@ int launch(bool fwd, const void* x, long long sb, long long sc, void* y,
 }  // namespace
 
 // x: [B, C, N] with element strides (sb, sc, 1). y: contiguous [B, C, N].
-// w, wp: twiddle bank and Shoup quotients, [C, N] contiguous. q: [C].
-// ew, ewp: [C] Shoup constant for the entry multiply, or null.
+// w, wp: twiddle bank and Shoup quotients, [C, N] contiguous; wp null for
+// a Montgomery-form bank. q, k: [C] modulus and -q^-1 mod 2^62.
+// pre: 0, or 1 for the Montgomery entry by (s, sp) ([C]: R mod q and its
+// quotient; R^2 mod q with Montgomery twiddles, sp null), or 2 for the
+// canon pre-stage (s: R mod q).
 // Returns 0, a CUDA error, -1 for logN outside 8-17, or -2 when the
 // cluster cannot be scheduled.
 extern "C" int ltt_ntt_fwd(const void* x, long long sb, long long sc, void* y,
                            int B, int C, int logN, const void* w,
-                           const void* wp, const void* q, const void* ew,
-                           const void* ewp, int post_reduce, void* stream) {
-  return launch(true, x, sb, sc, y, B, C, logN, w, wp, q, ew, ewp,
+                           const void* wp, const void* q, const void* k,
+                           const void* s, const void* sp, int pre,
+                           int post_reduce, void* stream) {
+  return launch(true, x, sb, sc, y, B, C, logN, w, wp, q, k, s, sp, pre,
                 post_reduce, stream);
 }
 
-// nw, nwp: [C] Shoup constant of the final normalisation (N^-1, or
-// N^-1 R^-1 for the fused Montgomery exit), or null to skip it (the
-// coefficient-sharded inverse normalises after its cross-shard stages).
-// post_reduce: [0, 2q) -> [0, q). x must be 16-byte aligned with even
-// strides.
+// nw, nwp: [C] constant of the final normalisation, or null to skip it
+// (the coefficient-sharded inverse normalises after its cross-shard
+// stages): a Shoup pair (N^-1, or N^-1 R^-1 for the fused Montgomery
+// exit), or with Montgomery twiddles N^-1 R mod q (nwp null) and then
+// `post_exit` for a Montgomery reduce after it. post_reduce: [0, 2q) ->
+// [0, q).
+// x must be 16-byte aligned with even strides.
 extern "C" int ltt_ntt_inv(const void* x, long long sb, long long sc, void* y,
                            int B, int C, int logN, const void* w,
-                           const void* wp, const void* q, const void* nw,
-                           const void* nwp, int post_reduce, void* stream) {
-  return launch(false, x, sb, sc, y, B, C, logN, w, wp, q, nw, nwp,
-                post_reduce, stream);
+                           const void* wp, const void* q, const void* k,
+                           const void* nw, const void* nwp, int post_exit,
+                           int post_reduce, void* stream) {
+  return launch(false, x, sb, sc, y, B, C, logN, w, wp, q, k, nw, nwp,
+                post_exit, post_reduce, stream);
 }
 
 // The launch geometry at logN into out (at least 16 ints, as

@@ -6,9 +6,12 @@
 //
 // Replaces: liberate_tpu/ntt/pallas_ntt.py `_ntt_mulacc_kernel` (:614),
 // launched by `ntt_ksk_accum` (:782, :810) when config.use_split_switch is
-// off, at logN <= 15. Without its canon pre-stage (canon=False): the
-// port's basis extension is the Shoup one, already unsigned [0, 2q). Same
-// words as ltt_ntt_fwd followed by ltt_ksk_mulacc (the split route).
+// off, at logN <= 15, in both twiddle forms (bfly.cuh's policies) and
+// with or without its canon pre-stage: canon=False after the Shoup basis
+// extension (already unsigned [0, 2q)), canon=True after the Montgomery
+// one (signed words, config.use_shoup_extend off). Same words as
+// ltt_ntt_fwd (in the same entry mode) followed by ltt_ksk_mulacc (the
+// split route).
 //
 // What bounds it on the H100: the P forward transforms' 64-bit integer
 // arithmetic (as ltt_ntt_fwd at B = P, bfly_variants.py), then the bytes
@@ -64,18 +67,20 @@ constexpr int kMaxSmem = 232448;     // shared memory a CTA may use
 
 // x: [P, C, N] with element strides (x_sp, x_sc, 1). k0, k1: key element
 // (part_off, level, 0), element strides (k_sp, k_sc, 1), 16-byte aligned.
-// q, kv: [C] modulus and -q^-1 mod 2^62. Block (g * K + k, c) is CTA k of
+// q, kv: [C] modulus and -q^-1 mod 2^62; ident: [C] R mod q for the canon
+// pre-stage, or null for none. Block (g * K + k, c) is CTA k of
 // the cluster of channel c and part group g (of G = gridDim.x / K).
 // d0, d1: contiguous [C, N]; part: contiguous [G - 1, 2, C, N]. A CTA
 // holds `held` parts' chunks in its shared memory, transforms that many
 // parts one after the other, then adds all their products to the sums.
-template <int LOGK, int FOLD>
+template <int LOGK, int FOLD, class TW, bool CANON>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     ntt_mulacc_cluster(const u64* __restrict__ x, long long x_sp,
                        long long x_sc, int P, int logN,
                        const u64* __restrict__ w, const u64* __restrict__ wp,
                        const u64* __restrict__ qv,
                        const u64* __restrict__ kv,
+                       const u64* __restrict__ ident,
                        const u64* __restrict__ k0,
                        const u64* __restrict__ k1, long long k_sp,
                        long long k_sc, u64* d0, u64* d1, u64* part,
@@ -90,6 +95,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const long long N = 1LL << logN, CN = C * N;
   const long long off = c * N + (long long)rank * M;
   const u64 q = qv[c], kq = kv[c], q2 = 2 * q;
+  const TW tw = twiddles<TW>(w, wp, c * N, q, kq);
+  const Entry pre{false, CANON ? ident[c] : 0, kq};
   ulonglong2* s0 =
       reinterpret_cast<ulonglong2*>((g ? part + 2 * (g - 1) * CN : d0) + off);
   ulonglong2* s1 = reinterpret_cast<ulonglong2*>(
@@ -101,9 +108,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   for (int p = p0; p < p1; p += held) {
     const int r = p1 - p < held ? p1 - p : held;
     for (int j = 0; j < r; ++j)
-      fwd_chunk<LOGK, FOLD>(geo, sh + j * M, x + (p + j) * x_sp + c * x_sc,
-                            rank, w + c * N, wp + c * N, q, false, 0, 0,
-                            p > p0 && j == 0);
+      fwd_chunk<LOGK, FOLD, CANON>(geo, sh + j * M,
+                                   x + (p + j) * x_sp + c * x_sc, rank, tw,
+                                   pre, p > p0 && j == 0);
 #pragma unroll 2
     for (int i = threadIdx.x; 2 * i < M; i += blockDim.x) {
       ulonglong2 r0, r1;
@@ -173,22 +180,24 @@ __global__ void mulacc_combine(u64* d0, u64* d1, const u64* __restrict__ part,
 
 typedef void (*Kernel)(const u64*, long long, long long, int, int,
                        const u64*, const u64*, const u64*, const u64*,
-                       const u64*, const u64*, long long, long long, u64*,
-                       u64*, u64*, int);
+                       const u64*, const u64*, const u64*, long long,
+                       long long, u64*, u64*, u64*, int);
 
-// The kernels of the (logK, fold) pairs of logN 8-15 and K = 1-8.
+// The kernels of the (logK, fold) pairs of logN 8-15 and K = 1-8 in the
+// twiddle form TW (with the canon pre-stage where CANON).
+template <class TW, bool CANON>
 Kernel kernel_of(const Geometry& g) {
   switch (g.logK * 8 + g.fold) {
-    case 0: return ntt_mulacc_cluster<0, 0>;
-    case 1: return ntt_mulacc_cluster<0, 1>;
-    case 2: return ntt_mulacc_cluster<0, 2>;
-    case 3: return ntt_mulacc_cluster<0, 3>;
-    case 8 + 0: return ntt_mulacc_cluster<1, 0>;
-    case 8 + 1: return ntt_mulacc_cluster<1, 1>;
-    case 8 + 2: return ntt_mulacc_cluster<1, 2>;
-    case 16 + 0: return ntt_mulacc_cluster<2, 0>;
-    case 16 + 1: return ntt_mulacc_cluster<2, 1>;
-    case 24 + 0: return ntt_mulacc_cluster<3, 0>;
+    case 0: return ntt_mulacc_cluster<0, 0, TW, CANON>;
+    case 1: return ntt_mulacc_cluster<0, 1, TW, CANON>;
+    case 2: return ntt_mulacc_cluster<0, 2, TW, CANON>;
+    case 3: return ntt_mulacc_cluster<0, 3, TW, CANON>;
+    case 8 + 0: return ntt_mulacc_cluster<1, 0, TW, CANON>;
+    case 8 + 1: return ntt_mulacc_cluster<1, 1, TW, CANON>;
+    case 8 + 2: return ntt_mulacc_cluster<1, 2, TW, CANON>;
+    case 16 + 0: return ntt_mulacc_cluster<2, 0, TW, CANON>;
+    case 16 + 1: return ntt_mulacc_cluster<2, 1, TW, CANON>;
+    case 24 + 0: return ntt_mulacc_cluster<3, 0, TW, CANON>;
     default: return nullptr;
   }
 }
@@ -201,42 +210,52 @@ bool takes(int logN, int logK) {
       logK > kMaxLogK)
     return false;
   const Geometry g = geometry_k(logN, logK);
-  return g.logM <= kLogChunk && columns(g) >= 1 && kernel_of(g) != nullptr;
+  return g.logM <= kLogChunk && columns(g) >= 1 &&
+         kernel_of<ShoupTw, false>(g) != nullptr;
 }
 
 }  // namespace
 
 // x: [P, C, N] with element strides (x_sp, x_sc, 1). w, wp: the layout's
-// twiddle bank and quotients [C, N]; q, k: [C] modulus and -q^-1 mod
-// 2^62. k0, k1: pointers to key element (part_off, level, 0) of the full
-// stacks, element strides (k_sp, k_sc, 1), 16-byte aligned with even
-// strides. d0, d1: contiguous [C, N], 16-byte aligned. Clusters of 2^logK
-// CTAs, G part groups (1 <= G <= P), `held` parts' chunks a CTA (1 to
-// kMaxHeld); part: contiguous [G - 1, 2, C, N], 16-byte aligned (unused
-// when G = 1). Returns 0, a CUDA error, -1 for a logN, K, G or held the
-// kernel does not take, or -2 when the cluster cannot be scheduled.
+// twiddle bank and quotients [C, N], wp null for a Montgomery-form bank;
+// q, k: [C] modulus and -q^-1 mod 2^62; ident: [C] R mod q for the canon
+// pre-stage of signed input words, or null. k0, k1: pointers to key
+// element (part_off, level, 0) of the full stacks, element strides (k_sp,
+// k_sc, 1), 16-byte aligned with even strides. d0, d1: contiguous [C, N],
+// 16-byte aligned. Clusters of 2^logK CTAs, G part groups (1 <= G <= P),
+// `held` parts' chunks a CTA (1 to kMaxHeld); part: contiguous
+// [G - 1, 2, C, N], 16-byte aligned (unused when G = 1). Returns 0, a CUDA
+// error, -1 for a logN, K, G or held the kernel does not take, or -2 when
+// the cluster cannot be scheduled.
 extern "C" int ltt_ntt_mulacc(const void* x, long long x_sp, long long x_sc,
                               void* part, int P, int G, int held, int C,
                               int logN, int logK, const void* w,
                               const void* wp, const void* q, const void* k,
-                              const void* k0, const void* k1, long long k_sp,
+                              const void* ident, const void* k0,
+                              const void* k1, long long k_sp,
                               long long k_sc, void* d0, void* d1,
                               void* stream) {
   if (!takes(logN, logK) || G < 1 || G > P || (G > 1 && part == nullptr) ||
       held < 1 || held > kMaxHeld)
     return -1;
-  static bool checked[kMaxMulaccLogN + 1][kMaxLogK + 1][kMaxHeld + 1];
+  static bool
+      checked[2][2][kMaxMulaccLogN + 1][kMaxLogK + 1][kMaxHeld + 1];
+  const bool mont = wp == nullptr, canon = ident != nullptr;
   Geometry g = geometry_k(logN, logK);
-  const Kernel kern = kernel_of(g);
+  const Kernel kern =
+      mont ? (canon ? kernel_of<MontTw, true>(g) : kernel_of<MontTw, false>(g))
+           : (canon ? kernel_of<ShoupTw, true>(g)
+                    : kernel_of<ShoupTw, false>(g));
   g.smem *= held;
   if (g.smem > kMaxSmem) return -1;
   ClusterLaunch l;
   int rc = l.init((const void*)kern, g, (unsigned)G, (unsigned)C, stream,
-                  checked[logN][logK][held]);
+                  checked[mont][canon][logN][logK][held]);
   if (rc != 0) return rc;
   rc = (int)cudaLaunchKernelEx(&l.cfg, kern, (const u64*)x, x_sp, x_sc, P,
                                logN, (const u64*)w, (const u64*)wp,
-                               (const u64*)q, (const u64*)k, (const u64*)k0,
+                               (const u64*)q, (const u64*)k,
+                               (const u64*)ident, (const u64*)k0,
                                (const u64*)k1, k_sp, k_sc, (u64*)d0,
                                (u64*)d1, (u64*)part, held);
   if (rc != 0) return rc;

@@ -19,6 +19,14 @@ multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``: by default
 the forward transform then ``ksk_mulacc``, with ``use_split_switch=False``
 both in one ``ntt_mulacc`` kernel (``butterfly_switch_route``).
 
+The JAX package's ``config`` switches that change words are keywords of
+the engine (``CkksEngine``): with ``use_shoup_twiddles``,
+``use_shoup_rescale``, ``use_shoup_moddown`` or ``use_shoup_extend`` off
+the engine runs the reference-parity Montgomery chains instead of the
+Shoup ones (``_rescale_core_mont``, ``_extend_mont`` with the canon
+pre-stage before the switch's transform, ``_mod_down_mont``, the
+Montgomery-twiddle transforms), which give the JAX CPU engine's words raw.
+
 With ``use_mxu_ntt=True`` (the JAX package's ``config.use_mxu_ntt`` path
 for its accelerator) every transform runs in the tensor-core kernels of
 ``ntt.cuda_mxu`` (natural-order NTT domain), and the key switch is one
@@ -154,6 +162,39 @@ def _rescale_core_shoup(d, rs_sh, bp, round_half, pack_next):
     if round_half is not None:
         out = out + _gt_unsigned(s, round_half).to(torch.int64)
     return torch.where(out < q, out, out - q)
+
+
+def _rescale_core_mont(d, rs, round_half, pack_next):
+    """The rescale's reference-parity Montgomery chain: (d - s), a signed
+    Montgomery product by q_l^-1 R mod q_i, the rounding bit, one
+    conditional subtract of q (the JAX package's ``_rescale_core``)."""
+    s = d[..., 0:1, :]
+    out = u64.montmul(d[..., 1:, :] - s, _col(rs), *pack_next.mont())
+    if round_half is not None:
+        out = out + _gt_unsigned(s, round_half).to(torch.int64)
+    return ops.reduce_2q(out, pack_next)
+
+
+def _mod_down_mont(d, pack_sp, pack_ord, PiRs, enter_ord, n_sp):
+    """Special-prime removal in the reference's Montgomery chain (the JAX
+    package's ``mod_down_mont``). d: [..., C_sp, N] plain [0, q); ordinary
+    rows ride in Montgomery form and special rows plain (``enter_ord``:
+    R^2 on the ordinary rows, R on the special ones), so each PiR multiply
+    (P_j^-1 R, or R on the rows already dropped) advances both; a
+    Montgomery exit and a reduce at the end. Returns [..., C_ord, N] in
+    [0, q)."""
+    C_sp = d.shape[-2]
+    enter = _col(enter_ord)
+    v = ops.mont_mult(d, enter, pack_sp)
+    for P_ind in range(n_sp):
+        cur = C_sp - P_ind
+        tile = ops.mont_mult(v[..., cur - 1:cur, :].expand_as(v), enter,
+                             pack_sp)
+        v = ops.mont_sub(v, tile, pack_sp)
+        v = ops.reduce_2q(ops.mont_mult(v, _col(PiRs[P_ind]), pack_sp),
+                          pack_sp)
+    r = ops.mont_redc(v[..., :pack_ord.q.shape[0], :], pack_ord)
+    return ops.reduce_2q(r, pack_ord)
 
 
 def _mod_down_shoup(d, pack_sp, pack_ord, PiWs, bp, n_sp):
@@ -323,6 +364,26 @@ def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
     return acc
 
 
+def _extend_mont(state, le, pack_sp):
+    """Basis extension onto the with-special layout in the reference's
+    Montgomery chain (the JAX package's ``extend``): the first term times
+    R^2, each further term times L_i R^2, summed with conditional
+    subtracts (signed compares): Montgomery-form words, wrapped negatives
+    among them (``ops.canon`` repairs them before the transform). le: the
+    terms' scalars over the layout's channels."""
+    C_sp = pack_sp.q.shape[0]
+
+    def rows(t):
+        return t.expand(*t.shape[:-2], C_sp, t.shape[-1])
+
+    acc = ops.mont_mult(rows(state[0]), _col(pack_sp.Rs), pack_sp)
+    for i in range(len(state) - 1):
+        acc = ops.mont_add(acc, ops.mont_mult(rows(state[i + 1]),
+                                              _col(le[i]), pack_sp),
+                           pack_sp)
+    return acc
+
+
 # The largest logN at which the butterfly switch runs its unsplit core (#4,
 # ``ntt_mulacc``) when the engine does not split it, as the JAX engine
 # does (``pallas_ntt.supports_fused_accum``: its single kernel holds a
@@ -330,16 +391,23 @@ def _extend_shoup(state, le_sh, pack_sp, bp_off, level):
 FUSED_SWITCH_MAX_LOGN = 15
 
 
-def butterfly_switch_route(logN, split, coef_sharded=False):
-    """The butterfly switch core the JAX engine runs at this logN and
-    ``use_split_switch``: ``split`` (the forward NTT of the parts, then
-    ``ksk_mulacc``), ``fused`` (``ntt_mulacc``: both in one kernel; logN <=
-    FUSED_SWITCH_MAX_LOGN) or ``composed`` (the forward NTT, then the key
-    products and the sum over the parts as torch ops, where the JAX engine
-    composes them in XLA). On a coefficient shard (``coef_sharded``) the
+def butterfly_switch_route(logN, split, coef_sharded=False,
+                           fused_switch=True):
+    """The butterfly switch core the JAX engine runs at this logN,
+    ``use_split_switch`` and ``use_fused_switch``: ``split`` (the forward
+    NTT of the parts, then ``ksk_mulacc``), ``fused`` (``ntt_mulacc``: both
+    in one kernel; logN <= FUSED_SWITCH_MAX_LOGN) or ``composed`` (the
+    forward NTT, then the key products and the sum over the parts as torch
+    ops, where the JAX engine composes them in XLA; at every logN without
+    ``fused_switch``). On a coefficient shard (``coef_sharded``) the
     forward NTT is the coefficient-sharded one, so the unsplit core, a
     whole-length transform, is never taken: ``split`` runs ``ksk_mulacc``
-    on the shard's columns, else ``composed``."""
+    on the shard's columns, else ``composed``. With the Montgomery basis
+    extension each route starts with the canon pre-stage (``split`` and
+    ``composed``: ``ops.ntt``'s ``pre_canon``, #1's on a whole-length plan;
+    ``fused``: #4's ``canon``)."""
+    if not fused_switch:
+        return "composed"
     if split:
         return "split"
     if coef_sharded or logN > FUSED_SWITCH_MAX_LOGN:
@@ -353,18 +421,24 @@ def butterfly_switch_route(logN, split, coef_sharded=False):
 FOLD_MAX_LOGN = 15
 
 
-def switch_route(logN, shoup_ksk, on_mesh=False):
+def switch_route(logN, shoup_ksk, on_mesh=False, shoup_moddown=True,
+                 fused=True):
     """The tensor-core switch kernel the JAX engine runs at this logN and
     key form, by the name of its launch counter: ``mxu_switch`` (mod-down
-    folded in; Shoup-form key, logN <= FOLD_MAX_LOGN, one device),
-    ``mxu_switch_inv`` (Shoup-form key, separate mod-down) or
-    ``mxu_switch_inv_mont`` (Montgomery-form key, separate mod-down). On a
-    mesh (``on_mesh``) the fold is never taken: it needs every special row
-    at each column, and a rank holds its own rows (the JAX engine folds on
-    a single chip only)."""
+    folded in; Shoup-form key, Shoup mod-down, logN <= FOLD_MAX_LOGN, one
+    device), ``mxu_switch_inv`` (Shoup-form key, separate mod-down) or
+    ``mxu_switch_inv_mont`` (Montgomery-form key, separate mod-down); or
+    ``composed`` where the JAX engine composes the switch in XLA (``fused``
+    off: the Montgomery basis extension, or ``use_mxu_pallas`` off): the
+    extension and the key products as torch ops around the transforms #5
+    and #6. On a mesh (``on_mesh``) the fold is never taken: it needs
+    every special row at each column, and a rank holds its own rows (the
+    JAX engine folds on a single chip only)."""
+    if not fused:
+        return "composed"
     if not shoup_ksk:
         return "mxu_switch_inv_mont"
-    if on_mesh or logN > FOLD_MAX_LOGN:
+    if on_mesh or logN > FOLD_MAX_LOGN or not shoup_moddown:
         return "mxu_switch_inv"
     return "mxu_switch"
 
@@ -420,13 +494,51 @@ class CkksEngine:
     forward NTT then ``ksk_mulacc``; else as one ``ntt_mulacc`` kernel up
     to FUSED_SWITCH_MAX_LOGN and composed above it
     (``butterfly_switch_route``). All routes give the same words.
+
+    The JAX package's ``config`` switches that change words or routes, by
+    their field names, each True by default (the JAX package's TPU
+    default), stored at construction:
+    ``use_shoup_twiddles``: the transforms' twiddles in Shoup form (plain
+    values and quotients); off, in Montgomery form, the reference's chain,
+    whose words the JAX CPU engine gives (butterfly domain).
+    ``use_shoup_rescale``: the rescale in the plain domain
+    (``_rescale_core_shoup``); off, ``_rescale_core_mont``.
+    ``use_shoup_moddown``: the switch's mod-down in the plain domain
+    (``_mod_down_shoup``); off, ``_mod_down_mont``, and the tensor-core
+    switch never folds it.
+    ``use_shoup_extend``: the switch's basis extension in the plain
+    domain (``_extend_shoup``, unsigned words) and its inverse transform
+    without the Montgomery exit; off, the Montgomery extension
+    (``_extend_mont``, signed words) with the canon pre-stage before the
+    forward transform, the exit after the inverse, and in the tensor-core
+    domain the composed switch (``switch_route``).
+    ``use_mxu_pallas`` (tensor-core domain): the JAX package's switch of
+    its fused Pallas kernels, which here selects the width-group plans with
+    the Shoup recombination and the fused switch kernels (#9-#11); off, the
+    JAX package's XLA composition: one plan over every channel with the
+    Montgomery recombination in #5 and #6, the Montgomery entry and exit
+    as pointwise ops around them, and the composed switch with a
+    Montgomery-form key.
+    ``use_fused_switch`` (butterfly domain): off, the composed switch core
+    at every logN (``butterfly_switch_route``).
+    The JAX fields that only choose a TPU layout or backend (``use_pallas``,
+    ``pallas_interpret``, ``use_split_transform``, ``use_tiled_*``) give
+    the same words and have no keyword. ``mult_batched`` loops over
+    ``cc_mult`` unless the fused tensor-core switch runs with the Shoup
+    mod-down and rescale, as the JAX engine's.
     """
 
     def __init__(self, devices=None, verbose: bool = False,
                  bias_guard: bool = True, norm: str = "forward",
                  seed=None, mesh_shape=None, mesh=None,
                  use_mxu_ntt: bool = False, use_shoup_ksk: bool = True,
-                 use_split_switch: bool = True, device=None, **ctx_params):
+                 use_split_switch: bool = True,
+                 use_shoup_twiddles: bool = True,
+                 use_shoup_rescale: bool = True,
+                 use_shoup_moddown: bool = True,
+                 use_shoup_extend: bool = True,
+                 use_mxu_pallas: bool = True,
+                 use_fused_switch: bool = True, device=None, **ctx_params):
         if device is not None:
             if devices is not None and devices != device:
                 raise TypeError("devices and its alias device differ")
@@ -456,6 +568,12 @@ class CkksEngine:
         self.use_mxu_ntt = bool(use_mxu_ntt)
         self.use_shoup_ksk = bool(use_shoup_ksk)
         self.use_split_switch = bool(use_split_switch)
+        self.use_shoup_twiddles = bool(use_shoup_twiddles)
+        self.use_shoup_rescale = bool(use_shoup_rescale)
+        self.use_shoup_moddown = bool(use_shoup_moddown)
+        self.use_shoup_extend = bool(use_shoup_extend)
+        self.use_mxu_pallas = bool(use_mxu_pallas)
+        self.use_fused_switch = bool(use_fused_switch)
 
         if mesh is None:
             self.ctx = CkksContext(verbose=verbose, **ctx_params)
@@ -465,7 +583,9 @@ class CkksEngine:
                 ("ctx", tuple(sorted(ctx_params.items()))),
                 lambda: CkksContext(verbose=verbose, **ctx_params))
         self.ntt = NttContext(self.ctx, self.torch_device,
-                              use_mxu=self.use_mxu_ntt, mesh=mesh)
+                              use_mxu=self.use_mxu_ntt, mesh=mesh,
+                              shoup_twiddles=self.use_shoup_twiddles,
+                              mxu_pallas=self.use_mxu_pallas)
         if self.coef_shards > 1:
             # The coefficient plans' checks (a power of two; on the card
             # shards of at least 2^8 words) raise here, not at first use.
@@ -583,41 +703,57 @@ class CkksEngine:
                 self._tensor([(w << 64) // int(q) for w, q in zip(ws, qs)]))
 
     def _create_ksk_rescales(self):
-        """Shoup-form mod-down tables per level: for each special prime
-        P_j (P_j^-1 mod q_i, quotient) over the with-special channels
-        (1 on the channels already dropped), the Barrett reciprocals
+        """Mod-down tables per level, over the with-special channels. Shoup
+        form: for each special prime P_j (P_j^-1 mod q_i, quotient), 1 on
+        the channels already dropped; the Barrett reciprocals
         floor(2^64 / q_i), and the offset correction 2q - (2^63 mod q) of
-        the basis extension's first term."""
+        the basis extension's first term. Montgomery form: PiRs, P_j^-1 R
+        mod q_i (R, the identity, on the channels already dropped), and
+        enter_ord, R^2 on the ordinary channels and R on the special ones."""
         ctx = self.ctx
+        R = ctx.R
         P = ctx.q[-self.num_special:][::-1]
         self.PiWs = []
         self.bp_sp = []
+        self.PiRs = []
+        self.enter_ord = []
         for level in range(self.num_levels):
             q_lvl = ctx.q[level:]
             C_sp = len(q_lvl)
-            per_level = []
+            n_ord = C_sp - self.num_special
+            per_level, per_level_r = [], []
             for P_ind, Pj in enumerate(P):
                 live = C_sp - P_ind - 1
                 ws = ([pow(Pj, -1, mi) for mi in q_lvl[:live]]
                       + [1] * (C_sp - live))
                 per_level.append(self._shoup_pair(ws, q_lvl))
+                per_level_r.append(self._tensor(
+                    [w * R % mi for w, mi in zip(ws, q_lvl)]))
             self.PiWs.append(tuple(per_level))
+            self.PiRs.append(tuple(per_level_r))
             self.bp_sp.append((
                 self._tensor([(1 << 64) // q for q in q_lvl]),
                 self._tensor([2 * q - ((1 << 63) % q) for q in q_lvl])))
+            self.enter_ord.append(self._tensor(
+                ctx.R_square[level:level + n_ord]
+                + [R % mi for mi in q_lvl[n_ord:]]))
 
     def _create_rescale_scales(self):
-        """Shoup-form rescale tables: (q_l^-1 mod q_i, quotient) and the
-        Barrett reciprocals of the channels that survive level l."""
+        """Rescale tables of the channels that survive level l: the Shoup
+        form's (q_l^-1 mod q_i, quotient) and Barrett reciprocals, the
+        Montgomery form's q_l^-1 R mod q_i (``rescale_scales``)."""
         ctx = self.ctx
         self.rescale_sh = []
         self.bp_ord = []
+        self.rescale_scales = []
         for level in range(self.num_levels):
             m0 = ctx.q[level]
             m = ctx.q[level + 1:self.num_ordinary]
             self.rescale_sh.append(
                 self._shoup_pair([pow(m0, -1, mi) for mi in m], m))
             self.bp_ord.append(self._tensor([(1 << 64) // q for q in m]))
+            self.rescale_scales.append(self._tensor(
+                [pow(m0, -1, mi) * ctx.R % mi for mi in m]))
 
     def pack(self, level: int, mult_type: int = -1):
         return self.ntt.level_pack(level, mult_type)
@@ -829,16 +965,18 @@ class CkksEngine:
         switch reads the level's channels and the active parts through
         strides, without slicing copies. Small LRU keyed by identity.
 
-        Tensor-core domain with ``use_shoup_ksk``: each half in Shoup form,
-        a pair of the plain value w = REDC(k) in [0, q) and its quotient
-        floor(w 2^64 / q), so the switch kernel's key products are Shoup
-        products; without it the Montgomery-form words as they are."""
+        Tensor-core domain with ``use_shoup_ksk`` where the fused switch
+        kernels run (``_mxu_fused``, as the JAX engine's
+        ``_mxu_fused_switch``): each half in Shoup form, a pair of the plain
+        value w = REDC(k) in [0, q) and its quotient floor(w 2^64 / q), so
+        the switch kernel's key products are Shoup products; else the
+        Montgomery-form words as they are."""
         if ksk in self._ksk_stacked_cache:
             self._ksk_stacked_cache.move_to_end(ksk)
             return self._ksk_stacked_cache[ksk]
         k0 = torch.stack([part.data[0] for part in ksk.data])
         k1 = torch.stack([part.data[1] for part in ksk.data])
-        if self.use_mxu_ntt and self.use_shoup_ksk:
+        if self.use_mxu_ntt and self.use_shoup_ksk and self._mxu_fused():
             pack0 = self.pack(0, -2)
             k0, k1 = _ksk_shoup(k0, pack0), _ksk_shoup(k1, pack0)
         self._ksk_stacked_cache[ksk] = (k0, k1)
@@ -1018,50 +1156,86 @@ class CkksEngine:
         pack_sp = self.pack(level, -2)
         # Every part's channels on every rank of a mesh.
         a = self._gather(a, level, -1)
-        le_sh, bp_off = self._extension_tables(level)
-        ext = torch.stack([
-            _extend_shoup(_pre_extend(a, p.local_start, p.alpha, p),
-                          le_sh[i], pack_sp, bp_off, 0)
-            for i, p in enumerate(parts)])                # [P, C_sp, N]
+        ext = self._extend(a, level)                      # [P, C_sp, N]
+        canon = not self.use_shoup_extend
         k0, k1, at = self._ksk_at(ksk, level)
         part_off = parts[0].part_id
         route = butterfly_switch_route(self.ctx.logN, self.use_split_switch,
-                                       self.coef_shards > 1)
+                                       self.coef_shards > 1,
+                                       self.use_fused_switch)
         if route == "fused":
-            d0, d1 = cuda_ntt.ntt_mulacc(ext, k0, k1, pack_sp.plan, at,
-                                         part_off)
-        elif route == "split":
+            return self._switch_exit(torch.stack(cuda_ntt.ntt_mulacc(
+                ext, k0, k1, pack_sp.plan, at, part_off, canon)), level)
+        x = ops.ntt(ext, pack_sp, pre_canon=canon)
+        if route == "split":
             # On a coefficient shard #3 runs on the shard's columns with
             # its local plan (moduli, length).
             plan = pack_sp.plan if pack_sp.coef is None \
                 else pack_sp.coef.local
-            d0, d1 = cuda_ntt.ksk_mulacc(ops.ntt(ext, pack_sp), k0, k1,
-                                         plan, at, part_off)
+            d0, d1 = cuda_ntt.ksk_mulacc(x, k0, k1, plan, at, part_off)
         else:
-            P, C_sp = len(parts), pack_sp.q.shape[0]
-            ext = ops.ntt(ext, pack_sp)
-            t0 = ops.mont_mult(ext, k0[part_off:part_off + P,
-                                       at:at + C_sp], pack_sp)
-            t1 = ops.mont_mult(ext, k1[part_off:part_off + P,
-                                       at:at + C_sp], pack_sp)
-            d0, d1 = t0[0], t1[0]
-            for p in range(1, P):
-                d0 = ops.mont_add(d0, t0[p], pack_sp)
-                d1 = ops.mont_add(d1, t1[p], pack_sp)
-        d = ops.intt_reduce(torch.stack([d0, d1]), pack_sp)
-        return self._mod_down(d, level)
+            d0, d1 = self._key_products(x, k0, k1, at, part_off, pack_sp)
+        return self._switch_exit(torch.stack([d0, d1]), level)
+
+    def _extend(self, a, level):
+        """Every part's basis extension of a [C_ord, N] (all channels)
+        onto the with-special layout, stacked [P, C_sp, N]: the Shoup
+        extension (unsigned [0, 2q)), or with ``use_shoup_extend`` off the
+        Montgomery one (signed words)."""
+        parts = self.ntt.parts(level)
+        pack_sp = self.pack(level, -2)
+        le, bp_off = self._extension_tables(level)
+        return torch.stack([
+            _extend_shoup(_pre_extend(a, p.local_start, p.alpha, p), le[i],
+                          pack_sp, bp_off, 0) if self.use_shoup_extend
+            else _extend_mont(_pre_extend(a, p.local_start, p.alpha, p),
+                              le[i], pack_sp)
+            for i, p in enumerate(parts)])
+
+    @staticmethod
+    def _key_products(x, k0, k1, at, part_off, pack_sp):
+        """The composed switch core's key products of the transformed parts
+        x [P, C_sp, N] with the Montgomery-form key stacks and their sums
+        over the parts, as torch ops: (d0, d1) [C_sp, N]."""
+        P, C_sp = x.shape[0], x.shape[1]
+        t0 = ops.mont_mult(x, k0[part_off:part_off + P, at:at + C_sp],
+                           pack_sp)
+        t1 = ops.mont_mult(x, k1[part_off:part_off + P, at:at + C_sp],
+                           pack_sp)
+        d0, d1 = t0[0], t1[0]
+        for p in range(1, P):
+            d0 = ops.mont_add(d0, t0[p], pack_sp)
+            d1 = ops.mont_add(d1, t1[p], pack_sp)
+        return d0, d1
+
+    def _switch_exit(self, d, level):
+        """The key sums d [2, C_sp, N] (NTT domain) through the inverse
+        transform and the mod-down: the reduce without the exit after the
+        Shoup extension (its products are plain), with it after the
+        Montgomery one."""
+        pack_sp = self.pack(level, -2)
+        d = (ops.intt_reduce if self.use_shoup_extend
+             else ops.intt_exit_reduce)(d, pack_sp)
+        d = self._mod_down(d, level)
+        return d[0], d[1]
 
     def _mod_down(self, d, level):
-        """``_mod_down_shoup`` of the switch's [..., C_sp, n] words of
-        ``level``; on a mesh from the gathered rows (this rank's ordinary
-        rows and the special rows, from every rank)."""
+        """The mod-down of the switch's [..., C_sp, n] words of ``level``
+        (``_mod_down_shoup``, or ``_mod_down_mont`` with
+        ``use_shoup_moddown`` off); on a mesh from the gathered rows (this
+        rank's ordinary rows and the special rows, from every rank)."""
         if self.mesh is None:
-            return _mod_down_shoup(d, self.pack(level, -2),
-                                   self.pack(level, -1), self.PiWs[level],
-                                   self.bp_sp[level][0], self.num_special)
-        idx, pack_md, piws, bp = self._mod_down_tables(level)
-        return _mod_down_shoup(self._gather(d, level, -2)[..., idx, :],
-                               pack_md, self.pack(level, -1), piws, bp,
+            pack_md = self.pack(level, -2)
+            pirs, enter_ord = self.PiRs[level], self.enter_ord[level]
+            piws, bp = self.PiWs[level], self.bp_sp[level][0]
+        else:
+            idx, pack_md, pirs, enter_ord, piws, bp = \
+                self._mod_down_tables(level)
+            d = self._gather(d, level, -2)[..., idx, :]
+        if not self.use_shoup_moddown:
+            return _mod_down_mont(d, pack_md, self.pack(level, -1), pirs,
+                                  enter_ord, self.num_special)
+        return _mod_down_shoup(d, pack_md, self.pack(level, -1), piws, bp,
                                self.num_special)
 
     def create_switcher(self, a, ksk: DataStruct, level: int,
@@ -1079,21 +1253,28 @@ class CkksEngine:
     def _extension_tables(self, level):
         """(each part's extension terms, the Barrett reciprocals and offset
         corrections) of the with-special layout, cut to this rank's rows
-        (all of them on one device) once a level: they start at row 0."""
+        (all of them on one device) once a level: they start at row 0.
+        The terms are the Shoup extension's (w, wp, cadj), or with
+        ``use_shoup_extend`` off the Montgomery extension's L_i R^2."""
         def build():
             rows = self._index(self.ntt.rows(level, -2))
             rel = self._index(self._offsets(level, -2, level))
-            return ([tuple(tuple(t[rows] for t in term)
-                           for term in p.L_enter_sh)
-                     for p in self.ntt.parts(level)],
-                    tuple(t[rel] for t in self.bp_sp[level]))
+            if self.use_shoup_extend:
+                terms = [tuple(tuple(t[rows] for t in term)
+                               for term in p.L_enter_sh)
+                         for p in self.ntt.parts(level)]
+            else:
+                terms = [tuple(t[rows] for t in p.L_enter)
+                         for p in self.ntt.parts(level)]
+            return terms, tuple(t[rel] for t in self.bp_sp[level])
 
         return self._cached(("extension", level), build)
 
     def _mod_down_tables(self, level):
-        """The gathered rows the mod-down reads (this rank's ordinary rows,
-        then the special rows), their pack, its P_j^-1 steps and Barrett
-        reciprocals."""
+        """The gathered rows the mod-down reads on a mesh (this rank's
+        ordinary rows, then the special rows), their pack, the Montgomery
+        chain's P_j^-1 R steps and entry scalars, and the Shoup chain's
+        P_j^-1 steps and Barrett reciprocals."""
         def build():
             C_ord = self.ntt.num_channels(level, -1)
             C_sp = self.ntt.num_channels(level, -2)
@@ -1101,6 +1282,8 @@ class CkksEngine:
             idx = self._index(offs)
             return (idx, self.ntt.make_pack_rows([level + o for o in offs],
                                                  with_plan=False),
+                    tuple(t[idx] for t in self.PiRs[level]),
+                    self.enter_ord[level][idx],
                     tuple((w[idx], wp[idx]) for w, wp in self.PiWs[level]),
                     self.bp_sp[level][0][idx])
 
@@ -1130,25 +1313,29 @@ class CkksEngine:
         return (*self._ksk_level_cache[key], 0)
 
     def _rescale_words(self, d, level, round_half):
-        """_rescale_core_shoup of words d [..., C, N] of the ordinary
-        layout of ``level`` into that of level + 1; on a mesh from the
-        gathered words (the dropped channel and this rank's rows)."""
+        """The rescale of words d [..., C, N] of the ordinary layout of
+        ``level`` into that of level + 1 (``_rescale_core_shoup``, or
+        ``_rescale_core_mont`` with ``use_shoup_rescale`` off); on a mesh
+        from the gathered words (the dropped channel and this rank's
+        rows)."""
+        pack_next = self.pack(level + 1, -1)
         if self.mesh is None:
-            return _rescale_core_shoup(d, self.rescale_sh[level],
-                                       self.bp_ord[level], round_half,
-                                       self.pack(level + 1, -1))
+            rs_sh, bp = self.rescale_sh[level], self.bp_ord[level]
+            rs = self.rescale_scales[level]
+        else:
+            def build():
+                offs = self._offsets(level + 1, -1, level + 1)
+                rel = self._index(offs)
+                return (self._index([0] + [o + 1 for o in offs]),
+                        tuple(t[rel] for t in self.rescale_sh[level]),
+                        self.bp_ord[level][rel],
+                        self.rescale_scales[level][rel])
 
-        def build():
-            offs = self._offsets(level + 1, -1, level + 1)
-            rel = self._index(offs)
-            return (self._index([0] + [o + 1 for o in offs]),
-                    tuple(t[rel] for t in self.rescale_sh[level]),
-                    self.bp_ord[level][rel])
-
-        idx, rs_sh, bp = self._cached(("rescale", level), build)
-        return _rescale_core_shoup(self._gather(d, level, -1)[..., idx, :],
-                                   rs_sh, bp, round_half,
-                                   self.pack(level + 1, -1))
+            idx, rs_sh, bp, rs = self._cached(("rescale", level), build)
+            d = self._gather(d, level, -1)[..., idx, :]
+        if not self.use_shoup_rescale:
+            return _rescale_core_mont(d, rs, round_half, pack_next)
+        return _rescale_core_shoup(d, rs_sh, bp, round_half, pack_next)
 
     def _mxu_switch_tables(self, level: int):
         """Per-level scalars of the fused switch: the extension terms
@@ -1175,14 +1362,24 @@ class CkksEngine:
             self._mxu_switch_cache[level] = (terms, off0, piw)
         return self._mxu_switch_cache[level]
 
+    def _mxu_fused(self):
+        """Whether the tensor-core switch runs in its fused kernels (the
+        Shoup basis extension with ``use_mxu_pallas``, as the JAX engine's
+        ``mxu_fused``); else it is composed (``switch_route``)."""
+        return self.use_shoup_extend and self.use_mxu_pallas
+
     def _switch_mxu(self, a, ksk: DataStruct, level: int):
         """_switch in the tensor-core domain: the raw divided-difference
         state of each part, zero-padded to A rows and stacked [P, A, N],
         goes through the switch kernels (extension, transform, key
         products, inverse), which also fold in the mod-down on the
-        ``switch_route`` that does; else the Shoup mod-down follows. On a
-        mesh every rank runs the kernels on its rows of the with-special
-        layout from the gathered state, then the gathered mod-down.
+        ``switch_route`` that does; else the mod-down follows. On a mesh
+        every rank runs the kernels on its rows of the with-special layout
+        from the gathered state, then the gathered mod-down. On the
+        ``composed`` route the extension, the key products and their sums
+        are torch ops around the transforms #5 and #6 (with the Montgomery
+        extension its canon first, and the exit after the inverse), as
+        the JAX engine composes them in XLA.
 
         A ciphertext batch a [B, C, N] runs as B segments of P parts
         ([B*P, A, N], b-major) through one dispatch of the same kernels;
@@ -1190,6 +1387,17 @@ class CkksEngine:
         parts = self.ntt.parts(level)
         # Every part's channels on every rank of a mesh.
         a = self._gather(a, level, -1)
+        k0, k1, at = self._ksk_at(ksk, level)
+        pack_sp = self.pack(level, -2)
+        part_off = parts[0].part_id
+        route = switch_route(self.ctx.logN, self.use_shoup_ksk,
+                             self.mesh is not None, self.use_shoup_moddown,
+                             self._mxu_fused())
+        if route == "composed":
+            x = ops.ntt(self._extend(a, level), pack_sp,
+                        pre_canon=not self.use_shoup_extend)
+            return self._switch_exit(torch.stack(self._key_products(
+                x, k0, k1, at, part_off, pack_sp)), level)
         A = max(p.alpha for p in parts)
         zero = torch.zeros_like(a[..., 0:1, :])
         st = torch.stack([
@@ -1199,11 +1407,7 @@ class CkksEngine:
         seg = None if a.dim() == 2 else len(parts)
         st = st.reshape(-1, A, a.shape[-1])
         terms, off0, piw = self._mxu_switch_tables(level)
-        k0, k1, at = self._ksk_at(ksk, level)
-        pack_sp = self.pack(level, -2)
-        part_off = parts[0].part_id
-        if switch_route(self.ctx.logN, self.use_shoup_ksk,
-                        self.mesh is not None) == "mxu_switch":
+        if route == "mxu_switch":
             d = cuda_mxu.dispatch_switch(st, terms, off0, piw, k0, k1,
                                          pack_sp.mxu, at, part_off,
                                          self.num_special, parts=seg)
@@ -1296,14 +1500,15 @@ class CkksEngine:
 
     def mult_batched(self, cts_a, cts_b, evk: DataStruct):
         """B independent ct x ct multiplies with relinearisation and rescale
-        at one common level: a list of B ciphertexts. In the tensor-core
-        domain one batched program (``mult_stacked``): one B=4B rescale and
-        enter+transform, one B=3B inverse, one switch dispatch of B ct
-        segments; in the butterfly domain a loop of ``cc_mult``, as the JAX
-        engine loops where it has no ct-batched kernel."""
+        at one common level: a list of B ciphertexts. Where the fused
+        tensor-core switch runs with the Shoup mod-down and rescale
+        (``_batched_mult``) one batched program (``mult_stacked``): one
+        B=4B rescale and enter+transform, one B=3B inverse, one switch
+        dispatch of B ct segments; elsewhere a loop of ``cc_mult``, as the
+        JAX engine loops where it has no ct-batched stages."""
         if len(cts_a) != len(cts_b) or not cts_a:
             raise errors.DifferentTypeError(a=len(cts_a), b=len(cts_b))
-        if not self.use_mxu_ntt:
+        if not self._batched_mult():
             return [self.cc_mult(a, b, evk) for a, b in zip(cts_a, cts_b)]
         level = cts_a[0].level
         for ct in (*cts_a, *cts_b):
@@ -1313,6 +1518,13 @@ class CkksEngine:
         out = self.mult_stacked(self.stack_cts(cts_a), self.stack_cts(cts_b),
                                 evk)
         return self.unstack_ct(out)
+
+    def _batched_mult(self):
+        """Whether every stage of ``cc_mult`` takes a ciphertext batch: the
+        tensor-core domain with the fused switch and the Shoup mod-down and
+        rescale (the JAX engine's ``mult_batched`` guard)."""
+        return (self.use_mxu_ntt and self._mxu_fused()
+                and self.use_shoup_moddown and self.use_shoup_rescale)
 
     def stack_cts(self, cts) -> DataStruct:
         """B same-level ciphertexts as one with [B, C, N] parts."""
@@ -1328,12 +1540,12 @@ class CkksEngine:
 
     def mult_stacked(self, ct_a: DataStruct, ct_b: DataStruct,
                      evk: DataStruct) -> DataStruct:
-        """The multiply of stacked ciphertexts (``stack_cts``). In the
-        tensor-core domain every stage of ``cc_mult`` takes the batch axis;
-        in the butterfly domain it unstacks, multiplies pair by pair and
-        restacks (the JAX engine's ``mult_stacked`` has no such guard and
-        gives wrong words where its stages are not batched)."""
-        if self.use_mxu_ntt:
+        """The multiply of stacked ciphertexts (``stack_cts``). Where every
+        stage of ``cc_mult`` takes the batch axis (``_batched_mult``) one
+        call; elsewhere it unstacks, multiplies pair by pair and restacks
+        (the JAX engine's ``mult_stacked`` has no such guard and gives
+        wrong words where its stages are not batched)."""
+        if self._batched_mult():
             return self.cc_mult(ct_a, ct_b, evk)
         return self.stack_cts([
             self.cc_mult(a, b, evk)

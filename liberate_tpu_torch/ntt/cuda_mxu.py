@@ -9,6 +9,10 @@ Six kernels (sources in ``liberate_tpu_torch/csrc``):
 - ``mxu_ntt_inv``: the inverse with N^-1 folded into stage 2; ``exitx``
   also folds the Montgomery exit, ``post_reduce`` reduces to [0, q)
   (replaces ``mxu_pallas._intt_kernel``);
+  both recombine the digit planes in the form of their plan
+  (``MxuPlan.mont_rec``): the Shoup form, or the Montgomery one of the
+  JAX kernels' ``shoup_rec=False`` and of the XLA ``mxu_ntt`` (launch
+  counters ``mxu_ntt_fwd_montrec``, ``mxu_ntt_inv_montrec``);
 - ``mxu_switch``: the fused key switch of one width group from the raw
   divided-difference state (extension, transform, Shoup key products
   summed over the parts, inverse, reduce) with the special-prime
@@ -56,7 +60,8 @@ from . import u64
 from .cuda_ntt import _device_kind, _raise_on
 from .mxu_ntt import MxuPlan
 
-launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_switch": 0,
+launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_ntt_fwd_montrec": 0,
+            "mxu_ntt_inv_montrec": 0, "mxu_switch": 0,
             "mxu_switch_inv": 0, "mxu_switch_inv_mont": 0,
             "mxu_ksk_accum": 0, "mxu_ksk_accum_inv": 0}
 
@@ -190,8 +195,11 @@ def _matmul(table, rs, x, dB):
 
 def _recombine(E, plan):
     """Planes E [B, C, dA*O, J] -> V mod q in [0, 2q): Horner over the
-    planes, Barrett of the low part and Shoup of the high part (each offset
-    by 2^63), the correction, two conditional subtracts."""
+    planes, then in the Shoup form a Barrett reduction of the low part and
+    a Shoup product of the high part (each offset by 2^63), the correction
+    and two conditional subtracts; in the Montgomery form (``mont_rec``)
+    a signed Montgomery product of each part by c_lo and c_hi, their sum
+    and one conditional subtract."""
     planes = E.unflatten(-2, (plan.dA, -1))
 
     def horner(lo, hi):
@@ -200,8 +208,17 @@ def _recombine(E, plan):
             v = v * 256 + planes[..., u, :, :]
         return v
 
-    q, bp, whi, wphi, corr = _cols(plan, "q", "bp", "whi", "wphi", "corr")
     split = min(plan.split, plan.dA)
+    if plan.mont_rec:
+        q, k, c_lo, c_hi = _cols(plan, "q", "k", "c_lo", "c_hi")
+        mont = (q & u64.LB_MASK, q >> u64.HALF_NBITS, k & u64.LB_MASK,
+                k >> u64.HALF_NBITS)
+        r = u64.montmul(horner(0, split), c_lo, *mont)
+        if plan.dA > split:
+            r = _csub(r + u64.montmul(horner(split, plan.dA), c_hi, *mont),
+                      2 * q)
+        return r
+    q, bp, whi, wphi, corr = _cols(plan, "q", "bp", "whi", "wphi", "corr")
     r = u64.barrett_2q(horner(0, split) ^ u64.INT64_MIN, bp, q)
     if plan.dA > split:
         r = r + u64.shoup_mul(horner(split, plan.dA) ^ u64.INT64_MIN, whi,
@@ -389,7 +406,7 @@ _L = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = {
     "ltt_mxu_ntt": [_I, _I, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I]
-    + [_P] * 11 + [_I, _P],
+    + [_P] * 13 + [_I, _I, _P],
     "ltt_mxu_switch": [_I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P,
                        _L, _I, _I] + [_P] * 16 + [_P],
@@ -414,7 +431,12 @@ def _logN(plan):
     return (plan.S * plan.R).bit_length() - 1
 
 
-def _check_plan(plan, device):
+def _check_plan(plan, device, transform=False):
+    """What the kernels take of a plan; the switch kernels (all but the
+    transforms) recombine in the Shoup form only."""
+    if plan.mont_rec and not transform:
+        raise ValueError("the MXU switch kernels recombine in the Shoup "
+                         "form: a width-group plan, not the master plan")
     if plan.dA != plan.dB or plan.dA not in DIGITS:
         raise ValueError(f"no MXU kernel for digits ({plan.dA}, {plan.dB}); "
                          f"built: {DIGITS}")
@@ -462,7 +484,7 @@ def _transform(name, inverse, x, plan, tables, post_reduce, twin, out):
     if _device_kind(x) == "cpu":
         out.copy_(twin(xb))
         return out
-    _check_plan(plan, x.device)
+    _check_plan(plan, x.device, transform=True)
     _check_words(xb, out)
     _check_tma(xb)
     B, C, N = xb.shape
@@ -474,10 +496,10 @@ def _transform(name, inverse, x, plan, tables, post_reduce, twin, out):
             out.data_ptr(), out.stride(0), out.stride(1), scratch.data_ptr(),
             B, C, _logN(plan), *(t.data_ptr() for t in tables),
             *(getattr(plan, f).data_ptr() for f in
-              ("q", "k", "bp", "whi", "wphi", "corr")),
-            int(post_reduce), stream)
+              ("q", "k", "bp", "whi", "wphi", "corr", "c_lo", "c_hi")),
+            int(plan.mont_rec), int(post_reduce), stream)
     _raise_on(rc, name)
-    launches[name] += 1
+    launches[name + ("_montrec" if plan.mont_rec else "")] += 1
     return out
 
 

@@ -4,25 +4,37 @@ their launch counters.
 Four kernels (sources in ``liberate_tpu_torch/csrc``):
 
 - ``ntt_fwd``: forward negacyclic NTT over [..., C, N], optionally entering
-  Montgomery form first (a Shoup multiply by R mod q) and reducing to
-  [0, q) last (replaces ``pallas_ntt._ntt_kernel``);
-- ``ntt_inv``: the inverse NTT with the N^-1 (or N^-1 R^-1, the fused
-  Montgomery exit) Shoup multiply and the optional reduce folded in, or
-  with ``no_norm`` none of them (replaces ``pallas_ntt._intt_kernel`` and
-  its ``no_norm`` mode; counted as ``ntt_inv_no_norm``);
+  Montgomery form first (``pre_enter``) or with the canon pre-stage
+  (``pre_canon``: wrapped-negative words to [0, 2q) through a signed
+  Montgomery product by R mod q, the JAX kernel's ``pre_canon``), and
+  reducing to [0, q) last (replaces ``pallas_ntt._ntt_kernel``);
+- ``ntt_inv``: the inverse NTT with the N^-1 normalisation (and the
+  Montgomery exit with ``post_exit``) and the optional reduce folded in,
+  or with ``no_norm`` none of them (replaces ``pallas_ntt._intt_kernel``
+  and its ``no_norm`` mode; counted as ``ntt_inv_no_norm``);
 - ``ksk_mulacc``: the key-switch products with both key halves, summed
   over the gadget parts (replaces ``pallas_ntt._ksk_mulacc_kernel``);
 - ``ntt_mulacc``: the forward NTT of every gadget part and ``ksk_mulacc``
   in one kernel, the unsplit switch core (replaces
-  ``pallas_ntt._ntt_mulacc_kernel`` without its canon pre-stage: the
-  port's basis extension is the Shoup one, already unsigned [0, 2q)).
-  It runs ``ntt_fwd``'s cluster transform with the key products as its
-  epilogue, the parts in G groups of clusters (``mulacc_geometry``).
+  ``pallas_ntt._ntt_mulacc_kernel``; with ``canon`` its canon pre-stage,
+  for the Montgomery basis extension's signed words). It runs
+  ``ntt_fwd``'s cluster transform with the key products as its epilogue,
+  the parts in G groups of clusters (``mulacc_geometry``).
+
+The transforms take the twiddle form of their plan (``NttPlan.mont``):
+Shoup-form plain twiddles (the JAX package's ``use_shoup_twiddles``, its
+TPU default) or Montgomery-form twiddles, whose butterflies and entry and
+normalisation multiplies are the reference's Montgomery chain (the JAX
+package's CPU transforms and ``golden.ntt``, bit for bit). The two give
+the same values mod q, with other [0, 2q) representatives.
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain twin
 only for a CPU tensor; it raises for anything else. Each twin repeats the
 kernel's arithmetic step for step, so both give the same words. Every
-launch adds one to ``launches[name]``.
+launch adds one to its counter: ``launches[name]`` in the default modes,
+``mode_launches[label]`` in the reference-parity ones, the label the
+kernel's name, then ``_mont`` on a Montgomery-twiddle plan and ``_canon``
+with the canon pre-stage (``launch_label``).
 
 ``ntt_fwd`` and ``ntt_inv`` run one thread-block cluster per (b, c)
 channel, its CTAs holding the channel in their shared memory;
@@ -36,8 +48,25 @@ import torch
 from .. import _build
 from . import u64
 
+def launch_label(name, mont=False, canon=False):
+    """The launch counter of a kernel mode: ``name`` (ntt_fwd, ntt_inv,
+    ntt_inv_no_norm, ntt_mulacc), ``_mont`` with Montgomery twiddles,
+    ``_canon`` with the canon pre-stage."""
+    return name + ("_mont" if mont else "") + ("_canon" if canon else "")
+
+
 launches = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_inv_no_norm": 0,
             "ksk_mulacc": 0, "ntt_mulacc": 0}
+mode_launches = {launch_label(n, m, c): 0
+                 for n, canons in (("ntt_fwd", (False, True)),
+                                   ("ntt_inv", (False,)),
+                                   ("ntt_inv_no_norm", (False,)),
+                                   ("ntt_mulacc", (False, True)))
+                 for m in (False, True) for c in canons if m or c}
+
+
+def _count(label):
+    (launches if label in launches else mode_launches)[label] += 1
 
 
 # The butterfly transforms' launch (csrc/ntt.cu): a cluster of K CTAs per
@@ -139,28 +168,37 @@ def mulacc_geometry(logN, P, C, K=None, G=None, held=None):
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, mode_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 class NttPlan:
     """Per-channel tables of the kernels for one channel layout.
 
-    w/wp, iw/iwp: forward and inverse PLAIN twiddle banks [C, N]
-    (bit-reversed: stage s, block b uses entry 2^s + b) and their Shoup
-    quotients floor(w * 2^64 / q). q, k: [C] modulus and k = -q^-1 mod
-    2^62. enter: (R mod q, quotient); ninv: (N^-1, quotient); ninv_exit:
-    (N^-1 R^-1, quotient), each a pair of [C] tensors.
+    ``mont`` selects the twiddle form. Shoup (False): w/wp, iw/iwp are
+    the forward and inverse PLAIN twiddle banks [C, N] (bit-reversed:
+    stage s, block b uses entry 2^s + b) and their Shoup quotients
+    floor(w * 2^64 / q); enter: (R mod q, quotient); ninv: (N^-1,
+    quotient); ninv_exit: (N^-1 R^-1, quotient), each a pair of [C]
+    tensors. Montgomery (True): w/iw are the banks in Montgomery form,
+    psi R mod q as the reference's REDC by R^2 leaves them (lazy [0, 2q)),
+    wp = iwp = None; enter: (R^2 mod q,); ninv: (N^-1 R mod q,);
+    ninv_exit None (the exit is a Montgomery reduce after the
+    normalisation). q, k: [C] modulus and k = -q^-1 mod 2^62; ident:
+    R mod q, the canon pre-stage's Montgomery identity.
     """
 
     __slots__ = ("logN", "q", "k", "w", "wp", "iw", "iwp", "enter", "ninv",
-                 "ninv_exit")
+                 "ninv_exit", "ident", "mont")
 
-    def __init__(self, logN, q, k, w, wp, iw, iwp, enter, ninv, ninv_exit):
+    def __init__(self, logN, q, k, w, wp, iw, iwp, enter, ninv, ninv_exit,
+                 ident, mont=False):
         self.logN = logN
         self.q, self.k = q, k
         self.w, self.wp, self.iw, self.iwp = w, wp, iw, iwp
         self.enter, self.ninv, self.ninv_exit = enter, ninv, ninv_exit
+        self.ident, self.mont = ident, mont
 
     def slice(self, start, stop):
         """The plan of the channel range [start, stop) (views, no copies)."""
@@ -173,20 +211,37 @@ class NttPlan:
         return self._map(lambda t: t.index_select(0, idx))
 
     def _map(self, fn):
-        return NttPlan(self.logN, fn(self.q), fn(self.k), fn(self.w),
-                       fn(self.wp), fn(self.iw), fn(self.iwp),
-                       tuple(map(fn, self.enter)), tuple(map(fn, self.ninv)),
-                       tuple(map(fn, self.ninv_exit)))
+        def f(t):
+            if t is None:
+                return None
+            return tuple(map(f, t)) if isinstance(t, tuple) else fn(t)
+        return NttPlan(self.logN, *(f(getattr(self, n)) for n in
+                                    self.__slots__[1:-1]), mont=self.mont)
 
 
-def make_plan(logN, q_list, k_list, psi_plain, ipsi_plain, device):
-    """Build an NttPlan. psi_plain/ipsi_plain: int64 [C, N] plain banks.
-    The quotient banks are computed by long division on ``device``."""
+def make_plan(logN, q_list, k_list, psi_plain, ipsi_plain, device,
+              mont=False):
+    """Build an NttPlan from the plain banks psi_plain/ipsi_plain (int64
+    [C, N]): with ``mont`` the Montgomery-twiddle plan, else the Shoup one,
+    whose quotient banks are computed by long division on ``device``."""
     R = 1 << 62
     N = 1 << logN
     qt = u64.tensor(q_list, device)
+    kt = u64.tensor(k_list, device)
     w = torch.as_tensor(psi_plain, dtype=torch.int64).to(device)
     iw = torch.as_tensor(ipsi_plain, dtype=torch.int64).to(device)
+    ninv = [pow(N, -1, q) for q in q_list]
+    ident = u64.tensor([R % q for q in q_list], device)
+    if mont:
+        Rs = u64.tensor([R * R % q for q in q_list], device)
+        cons = [t[:, None] for t in _halves(qt, kt)]
+        return NttPlan(
+            logN, qt, kt, u64.montmul(w, Rs[:, None], *cons).contiguous(),
+            None, u64.montmul(iw, Rs[:, None], *cons).contiguous(), None,
+            enter=(Rs,),
+            ninv=(u64.tensor([n * R % q for n, q in zip(ninv, q_list)],
+                             device),),
+            ninv_exit=None, ident=ident, mont=True)
 
     def quot(bank):
         return u64.shoup_quotient(bank, qt[:, None]).contiguous()
@@ -196,17 +251,17 @@ def make_plan(logN, q_list, k_list, psi_plain, ipsi_plain, device):
                 u64.tensor([(w_ << 64) // q for w_, q in zip(ws, q_list)],
                            device))
 
-    ninv = [pow(N, -1, q) for q in q_list]
     rinv = [pow(R, -1, q) for q in q_list]
     return NttPlan(
-        logN, qt, u64.tensor(k_list, device), w, quot(w), iw, quot(iw),
+        logN, qt, kt, w, quot(w), iw, quot(iw),
         enter=scalar([R % q for q in q_list]),
         ninv=scalar(ninv),
         ninv_exit=scalar([(n * r) % q for n, r, q in zip(ninv, rinv,
-                                                          q_list)]))
+                                                          q_list)]),
+        ident=ident)
 
 
-def prime_plan(logN, count, device, bits=60):
+def prime_plan(logN, count, device, bits=60, mont=False):
     """The NttPlan of the ``count`` largest primes q = 1 (mod 2N) below
     2^bits, without a whole context (the presets' 60-bit base and special
     primes are the first of them): transform checks at any logN."""
@@ -222,7 +277,7 @@ def prime_plan(logN, count, device, bits=60):
     R = 1 << 62
     psi, ipsi = psi_bank(primes, logN)
     return make_plan(logN, primes, [(-pow(p, -1, R)) % R for p in primes],
-                     psi, ipsi, device)
+                     psi, ipsi, device, mont=mont)
 
 
 # -- plain twins ------------------------------------------------------------------
@@ -233,21 +288,68 @@ def _cond_sub(v, m):
     return torch.where(v < m, v, v - m)
 
 
-def ntt_fwd_plain(x, plan, pre_enter=False, post_reduce=False):
+def _halves(q, k):
+    """The 31-bit half limbs (ql, qh, kl, kh) of q and k for u64.montmul."""
+    return (q & u64.LB_MASK, q >> u64.HALF_NBITS,
+            k & u64.LB_MASK, k >> u64.HALF_NBITS)
+
+
+def _montmul_consts(plan):
+    return _halves(plan.q, plan.k)
+
+
+def _cols(plan, dims):
+    """(q, and the montmul constants) as [C, 1, ...] columns of ``dims``
+    trailing axes."""
+    def col(t):
+        return t.reshape((-1,) + (1,) * dims)
+    return col(plan.q), [col(t) for t in _montmul_consts(plan)]
+
+
+def _scalar_mul(a, plan, pair):
+    """a [B, C, N] times the per-channel constant ``pair``: a Shoup product
+    with (w, wp), or a Montgomery product with (w,) on a Montgomery
+    plan."""
+    q, cons = _cols(plan, 1)
+    if plan.mont:
+        return u64.montmul(a, pair[0][:, None], *cons)
+    return u64.shoup_mul(a, pair[0][:, None], pair[1][:, None], q)
+
+
+def _twiddle(x, plan, bank, quot, m):
+    """x [B, C, m, h] times the twiddles of stage log2(m), bank entries
+    m .. 2m - 1: Shoup with their quotients, or Montgomery (the XLA
+    chain's montmul(twiddle, word))."""
+    q, cons = _cols(plan, 2)
+    if plan.mont:
+        return u64.montmul(bank[:, m:2 * m, None], x, *cons)
+    return u64.shoup_mul(x, bank[:, m:2 * m, None], quot[:, m:2 * m, None],
+                         q)
+
+
+def canon_plain(x, plan):
+    """The canon pre-stage: canon_2q(montmul_signed(x, R mod q)), x [B, C,
+    N] signed words (wrapped negatives allowed) -> [0, 2q)."""
+    q, cons = _cols(plan, 1)
+    r = u64.montmul(x, plan.ident[:, None], *cons)
+    return torch.where(r < 0, r + 2 * q, r)
+
+
+def ntt_fwd_plain(x, plan, pre_enter=False, post_reduce=False,
+                  pre_canon=False):
     """Forward NTT of x [B, C, N] (CT butterflies, bit-reversed output)."""
     B, C, N = x.shape
-    q = plan.q[:, None, None]
-    q2 = 2 * q
+    q2 = 2 * plan.q[:, None, None]
     a = x
+    if pre_canon:
+        a = canon_plain(a, plan)
     if pre_enter:
-        a = u64.shoup_mul(a, plan.enter[0][:, None], plan.enter[1][:, None],
-                          plan.q[:, None])
+        a = _scalar_mul(a, plan, plan.enter)
     for s in range(plan.logN):
         m = 1 << s
         v = a.reshape(B, C, m, 2, N >> (s + 1))
         U, O = v[:, :, :, 0], v[:, :, :, 1]
-        V = u64.shoup_mul(O, plan.w[:, m:2 * m, None],
-                          plan.wp[:, m:2 * m, None], q)
+        V = _twiddle(O, plan, plan.w, plan.wp, m)
         a = torch.stack([_cond_sub(U + V, q2), _cond_sub(U + q2 - V, q2)],
                         dim=3).reshape(B, C, N)
     if post_reduce:
@@ -263,36 +365,31 @@ def _check_no_norm(no_norm, post_exit, post_reduce):
 
 def ntt_inv_plain(x, plan, post_exit=False, post_reduce=False,
                   no_norm=False):
-    """Inverse NTT of x [B, C, N] (GS butterflies), then the Shoup multiply
-    by N^-1 (N^-1 R^-1 with post_exit), then optionally [0, 2q) -> [0, q).
+    """Inverse NTT of x [B, C, N] (GS butterflies), then the multiply by
+    N^-1 (Shoup: N^-1 R^-1 with post_exit; Montgomery: by N^-1 R, then a
+    Montgomery reduce with post_exit), then optionally [0, 2q) -> [0, q).
     ``no_norm``: the lazy [0, 2q) words of the last stage, with neither."""
     _check_no_norm(no_norm, post_exit, post_reduce)
     B, C, N = x.shape
-    q = plan.q[:, None, None]
-    q2 = 2 * q
+    q2 = 2 * plan.q[:, None, None]
     a = x
     for s in reversed(range(plan.logN)):
         m = 1 << s
         v = a.reshape(B, C, m, 2, N >> (s + 1))
         U, V = v[:, :, :, 0], v[:, :, :, 1]
-        O = _cond_sub(U + q2 - V, q2)
-        W = u64.shoup_mul(O, plan.iw[:, m:2 * m, None],
-                          plan.iwp[:, m:2 * m, None], q)
+        W = _twiddle(_cond_sub(U + q2 - V, q2), plan, plan.iw, plan.iwp, m)
         a = torch.stack([_cond_sub(U + V, q2), W], dim=3).reshape(B, C, N)
     if no_norm:
         return a
-    w, wp = plan.ninv_exit if post_exit else plan.ninv
-    a = u64.shoup_mul(a, w[:, None], wp[:, None], plan.q[:, None])
+    if plan.mont:
+        a = _scalar_mul(a, plan, plan.ninv)
+        if post_exit:
+            a = u64.montredc(a, *_cols(plan, 1)[1])
+    else:
+        a = _scalar_mul(a, plan, plan.ninv_exit if post_exit else plan.ninv)
     if post_reduce:
         a = _cond_sub(a, plan.q[:, None])
     return a
-
-
-def _montmul_consts(plan):
-    k = plan.k
-    q = plan.q
-    return (q & u64.LB_MASK, q >> u64.HALF_NBITS,
-            k & u64.LB_MASK, k >> u64.HALF_NBITS)
 
 
 def ksk_mulacc_plain(x, k0, k1, plan, level, part_off):
@@ -312,11 +409,12 @@ def ksk_mulacc_plain(x, k0, k1, plan, level, part_off):
     return d0, d1
 
 
-def ntt_mulacc_plain(x, k0, k1, plan, level, part_off):
-    """x [P, C, N] lazy [0, 2q): the forward NTT of every part, then
+def ntt_mulacc_plain(x, k0, k1, plan, level, part_off, canon=False):
+    """x [P, C, N] lazy [0, 2q) (with ``canon`` signed words, through the
+    canon pre-stage first): the forward NTT of every part, then
     ksk_mulacc_plain. Returns (d0, d1) [C, N]."""
-    return ksk_mulacc_plain(ntt_fwd_plain(x, plan), k0, k1, plan, level,
-                            part_off)
+    return ksk_mulacc_plain(ntt_fwd_plain(x, plan, pre_canon=canon), k0, k1,
+                            plan, level, part_off)
 
 
 # -- CUDA launches -----------------------------------------------------------------
@@ -325,13 +423,15 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = {
-    "ltt_ntt_fwd": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
-    "ltt_ntt_inv": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "ltt_ntt_fwd": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                    _I, _P],
+    "ltt_ntt_inv": [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                    _I, _P],
     "ltt_ntt_geometry": [_I, ctypes.POINTER(_I)],
     "ltt_ksk_mulacc": [_P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
                        _P],
     "ltt_ntt_mulacc": [_P, _L, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P, _P, _P, _L, _L, _P, _P, _P],
+                       _P, _P, _P, _P, _L, _L, _P, _P, _P],
     "ltt_ntt_mulacc_geometry": [_I, _I, ctypes.POINTER(_I)],
 }
 
@@ -401,45 +501,69 @@ def _check_transform(name, xb, plan):
                          "batch and channel strides")
 
 
-def _transform(name, x, plan, w, wp, scal, post_reduce, twin,
-               counter=None):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _transform(name, x, plan, w, wp, scal, mode, post_reduce, twin,
+               counter):
+    """One transform launch: twiddle bank w with its quotients wp (None on
+    a Montgomery plan), the per-channel constants ``scal`` of the entry or
+    the normalisation (None for none), ``mode`` (forward: 0, 1 entry,
+    2 canon; inverse: the Montgomery exit)."""
     xb = _batched(x, plan)
     if _device_kind(x) == "cpu":
         return twin(xb).reshape(x.shape)
-    _check_cuda(x, plan.q, w, wp, *(scal or ()))
+    consts = [t for t in (plan.k, w, wp, *(scal or ())) if t is not None]
+    _check_cuda(x, plan.q, *consts)
     _check_transform(name, xb, plan)
     B, C, N = xb.shape
+    s0, s1 = (tuple(scal) + (None,))[:2] if scal else (None, None)
     out = torch.empty((B, C, N), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _fn("ntt", "ltt_" + name)(
             xb.data_ptr(), xb.stride(0), xb.stride(1), out.data_ptr(), B, C,
-            plan.logN, w.data_ptr(), wp.data_ptr(), plan.q.data_ptr(),
-            scal[0].data_ptr() if scal else None,
-            scal[1].data_ptr() if scal else None, int(post_reduce), stream)
+            plan.logN, w.data_ptr(), _ptr(wp), plan.q.data_ptr(),
+            plan.k.data_ptr(), _ptr(s0), _ptr(s1), mode, int(post_reduce),
+            stream)
     _raise_on(rc, name)
-    launches[counter or name] += 1
+    _count(counter)
     return out.reshape(x.shape)
 
 
-def ntt_fwd(x, plan, pre_enter=False, post_reduce=False):
-    """Forward NTT of x [..., C, N] (CUDA kernel, or the twin on the CPU)."""
+def ntt_fwd(x, plan, pre_enter=False, post_reduce=False, pre_canon=False):
+    """Forward NTT of x [..., C, N] (CUDA kernel, or the twin on the CPU),
+    in the twiddle form of the plan; ``pre_enter`` enters Montgomery form
+    first, ``pre_canon`` runs the canon pre-stage on signed words."""
+    if pre_enter and pre_canon:
+        raise ValueError("ntt_fwd: pre_enter or pre_canon, not both")
+    scal = plan.enter if pre_enter else (plan.ident,) if pre_canon else None
     return _transform(
-        "ntt_fwd", x, plan, plan.w, plan.wp,
-        plan.enter if pre_enter else None, post_reduce,
-        lambda xb: ntt_fwd_plain(xb, plan, pre_enter, post_reduce))
+        "ntt_fwd", x, plan, plan.w, plan.wp, scal,
+        2 if pre_canon else int(pre_enter), post_reduce,
+        lambda xb: ntt_fwd_plain(xb, plan, pre_enter, post_reduce,
+                                 pre_canon),
+        launch_label("ntt_fwd", plan.mont, pre_canon))
 
 
 def ntt_inv(x, plan, post_exit=False, post_reduce=False, no_norm=False):
-    """Inverse NTT of x [..., C, N] with the N^-1 (N^-1 R^-1 when
-    post_exit) multiply and optional reduce; with ``no_norm`` without the
-    multiply (and then without the exit and the reduce)."""
+    """Inverse NTT of x [..., C, N] with the N^-1 multiply (and the
+    Montgomery exit when post_exit) and optional reduce; with ``no_norm``
+    without the multiply (and then without the exit and the reduce)."""
     _check_no_norm(no_norm, post_exit, post_reduce)
-    scal = None if no_norm else plan.ninv_exit if post_exit else plan.ninv
+    if no_norm:
+        scal = None
+    elif plan.mont:
+        scal = plan.ninv
+    else:
+        scal = plan.ninv_exit if post_exit else plan.ninv
     return _transform(
-        "ntt_inv", x, plan, plan.iw, plan.iwp, scal, post_reduce,
+        "ntt_inv", x, plan, plan.iw, plan.iwp, scal,
+        int(post_exit and plan.mont), post_reduce,
         lambda xb: ntt_inv_plain(xb, plan, post_exit, post_reduce, no_norm),
-        "ntt_inv_no_norm" if no_norm else None)
+        launch_label("ntt_inv_no_norm" if no_norm else "ntt_inv",
+                     plan.mont))
 
 
 def _check_switch_core(name, x, k0, k1, plan, level, part_off):
@@ -487,11 +611,12 @@ def ksk_mulacc(x, k0, k1, plan, level, part_off):
     return d0, d1
 
 
-def ntt_mulacc(x, k0, k1, plan, level, part_off):
+def ntt_mulacc(x, k0, k1, plan, level, part_off, canon=False):
     """The unsplit switch core (see ntt_mulacc_plain): x [P, C, N] lazy
-    [0, 2q) extension words in, (d0, d1) [C, N] out. The key stacks are
-    read in place through their strides (16-byte aligned with even strides
-    on the card). logN 8 to MULACC_MAX_LOGN."""
+    [0, 2q) extension words (with ``canon`` signed words, through the canon
+    pre-stage) in, (d0, d1) [C, N] out, in the twiddle form of the plan.
+    The key stacks are read in place through their strides (16-byte
+    aligned with even strides on the card). logN 8 to MULACC_MAX_LOGN."""
     k0v, k1v = _check_switch_core("ntt_mulacc", x, k0, k1, plan, level,
                                   part_off)
     P, C, N = x.shape
@@ -499,8 +624,9 @@ def ntt_mulacc(x, k0, k1, plan, level, part_off):
         raise ValueError(f"ntt_mulacc: the kernel takes logN {MIN_LOGN}-"
                          f"{MULACC_MAX_LOGN}, not {plan.logN}")
     if _device_kind(x) == "cpu":
-        return ntt_mulacc_plain(x, k0, k1, plan, level, part_off)
-    _check_cuda(x, plan.w, plan.wp)
+        return ntt_mulacc_plain(x, k0, k1, plan, level, part_off, canon)
+    _check_cuda(x, *(t for t in (plan.w, plan.wp, plan.ident)
+                     if t is not None))
     if k0v.data_ptr() % 16 or k1v.data_ptr() % 16 \
             or any(s % 2 for s in k0v.stride()[:2]):
         raise ValueError("ntt_mulacc: the kernel reads the keys in 16-byte "
@@ -515,10 +641,10 @@ def ntt_mulacc(x, k0, k1, plan, level, part_off):
         rc = _fn("ntt_mulacc", "ltt_ntt_mulacc")(
             x.data_ptr(), x.stride(0), x.stride(1), part.data_ptr(), P, G,
             geo["held"], C, plan.logN, K.bit_length() - 1,
-            plan.w.data_ptr(), plan.wp.data_ptr(), plan.q.data_ptr(),
-            plan.k.data_ptr(), k0v.data_ptr(), k1v.data_ptr(),
-            k0v.stride(0), k0v.stride(1), d[0].data_ptr(), d[1].data_ptr(),
-            stream)
+            plan.w.data_ptr(), _ptr(plan.wp), plan.q.data_ptr(),
+            plan.k.data_ptr(), plan.ident.data_ptr() if canon else None,
+            k0v.data_ptr(), k1v.data_ptr(), k0v.stride(0), k0v.stride(1),
+            d[0].data_ptr(), d[1].data_ptr(), stream)
     _raise_on(rc, "ntt_mulacc")
-    launches["ntt_mulacc"] += 1
+    _count(launch_label("ntt_mulacc", plan.mont, canon))
     return d[0], d[1]

@@ -21,7 +21,13 @@ offset by -128 into int8, and adds back 128 x the table row's digit sum
 ``liberate_tpu/ntt/mxu_ntt.py:make_plan`` (same digits, same constants):
 power tables by repeated doubling with Shoup constant products on int64
 tensors, every other table entry an index into them. ``group_plans`` builds
-one plan per width group (``width_groups``) and caches it on disk.
+one plan per width group (``width_groups``) and caches it on disk: the
+plans of the fused kernels (the JAX package's ``use_mxu_pallas``), whose
+recombination is the Shoup form. ``master_plans`` builds the one plan over
+every channel at the word size's digits (``digit_params``) with the
+Montgomery recombination (``MxuPlan.mont_rec``): the JAX package's XLA
+composition ``mxu_ntt.ntt`` over ``pack.mxu.resolve()``, which its engine
+runs with ``use_mxu_pallas`` off.
 """
 
 import hashlib
@@ -47,6 +53,13 @@ def channel_digit_params(q):
     return dA, dB
 
 
+def digit_params(word_bits):
+    """(dA, dB) of the one plan over every channel for a buffer word size:
+    dB data digits cover the lazy residues below 2^{word_bits+1}, dA
+    balanced digits the table entries below 2^{word_bits-1}."""
+    return -(-(word_bits - 1) // 8), -(-(word_bits + 1) // 8)
+
+
 def width_groups(q_list):
     """Contiguous channel runs with equal (dA, dB):
     [(start, stop, (dA, dB)), ...]."""
@@ -61,7 +74,7 @@ def width_groups(q_list):
 
 
 _TABLES = ("m1", "m1e", "m2", "i1", "i2", "i2x")
-_CONSTS = ("q", "k", "bp", "whi", "wphi", "corr")
+_CONSTS = ("q", "k", "bp", "whi", "wphi", "corr", "c_lo", "c_hi")
 _FIELDS = (_CONSTS + _TABLES + tuple(t + "_rs" for t in _TABLES)
            + ("tw", "itw"))
 
@@ -79,13 +92,18 @@ class MxuPlan:
     (int64): q, k = -q^-1 mod 2^62, the Barrett reciprocal
     bp = floor(2^64 / q), the high-part weight whi = 2^{8*split} mod q with
     its Shoup quotient wphi, and corr, the correction of the two +2^63
-    offsets of the recombination.
+    offsets of the Shoup recombination; c_lo = R mod q and
+    c_hi = 2^{8*split} R mod q, the Montgomery recombination's weights.
+    ``mont_rec``: the kernels recombine the planes in Montgomery form (two
+    signed Montgomery products, the JAX package's ``_recombine`` and
+    ``mxu_pallas`` with ``shoup_rec=False``), else in the Shoup form.
     """
 
-    __slots__ = ("R", "S", "dA", "dB", "split") + _FIELDS
+    __slots__ = ("R", "S", "dA", "dB", "split", "mont_rec") + _FIELDS
 
-    def __init__(self, R, S, dA, dB, split, **tensors):
+    def __init__(self, R, S, dA, dB, split, mont_rec=False, **tensors):
         self.R, self.S, self.dA, self.dB, self.split = R, S, dA, dB, split
+        self.mont_rec = mont_rec
         for f in _FIELDS:
             setattr(self, f, tensors[f])
 
@@ -99,12 +117,14 @@ class MxuPlan:
     def slice(self, start, stop):
         """The plan of channels [start, stop) (views, no copies)."""
         return MxuPlan(self.R, self.S, self.dA, self.dB, self.split,
+                       self.mont_rec,
                        **{f: t[start:stop] for f, t in self.tensors().items()})
 
     def select(self, idx):
         """The plan of the channels idx (an int64 index tensor, repeats
         allowed; copies)."""
         return MxuPlan(self.R, self.S, self.dA, self.dB, self.split,
+                       self.mont_rec,
                        **{f: t.index_select(0, idx)
                           for f, t in self.tensors().items()})
 
@@ -172,8 +192,9 @@ def _decompose(M, qs, qt, dA, dB):
 
 
 def make_plan(logN, q_list, k_list, psi_list, device, dA, dB,
-              word_bits=62) -> MxuPlan:
-    """Build the tables of one channel set at digit parameters (dA, dB).
+              word_bits=62, mont_rec=False) -> MxuPlan:
+    """Build the tables of one channel set at digit parameters (dA, dB),
+    for the Shoup or (``mont_rec``) the Montgomery recombination.
 
     q_list: moduli; k_list: -q^-1 mod 2^62; psi_list: primitive 2N-th
     roots. R = 2^word_bits is the Montgomery radix."""
@@ -224,36 +245,40 @@ def make_plan(logN, q_list, k_list, psi_list, device, dA, dB,
     t["corr"] = u64.tensor(
         [(-pow(2, 63, q) * (1 + (w if dA > split else 0))) % q
          for w, q in zip(w_hi, qs)], device)
-    return MxuPlan(R, S, dA, dB, split, **t)
+    t["c_lo"] = u64.tensor(Rms, device)
+    t["c_hi"] = u64.tensor([w * r % q for w, r, q in zip(w_hi, Rms, qs)],
+                           device)
+    return MxuPlan(R, S, dA, dB, split, mont_rec, **t)
 
 
 def _cache_path(ctx, lo, hi, dA, dB):
     key = hashlib.sha256(
-        f"mxu_torch1_{lo}_{hi}_{dA}_{dB}_{ctx.logN}_{ctx.buffer_bit_length}_"
+        f"mxu_torch2_{lo}_{hi}_{dA}_{dB}_{ctx.logN}_{ctx.buffer_bit_length}_"
         f"{'_'.join(str(q) for q in ctx.q)}".encode()).hexdigest()[:24]
     return Path(ctx.cache_folder) / f"mxu_{key}.pt"
 
 
-def group_plans(ctx, device, cache=True):
-    """One plan per width group of the context's primes:
-    ((start, stop, MxuPlan), ...) over global channel indices. With
-    ``cache``, each plan is read from the context's cache folder when
-    there, and written there after a build."""
+def _plans(ctx, device, runs, mont_rec, cache):
+    """((start, stop, MxuPlan), ...) of the channel runs ((lo, hi, (dA,
+    dB)), ...), each read from the cache folder when there (``cache``) and
+    written there after a build. The recombination form is not part of the
+    tables: a run's file serves both."""
     from ..fhe.context.ckks_context import primitive_root_2N
 
     out = []
-    for lo, hi, (dA, dB) in width_groups(ctx.q):
+    for lo, hi, (dA, dB) in runs:
         path = _cache_path(ctx, lo, hi, dA, dB)
         if cache and path.exists():
             d = torch.load(path, map_location=device, weights_only=True)
             plan = MxuPlan(d["R"], d["S"], d["dA"], d["dB"], d["split"],
-                           **{f: d[f] for f in _FIELDS})
+                           mont_rec, **{f: d[f] for f in _FIELDS})
         else:
             qs = ctx.q[lo:hi]
             plan = make_plan(ctx.logN, qs, ctx.k[lo:hi],
                              [primitive_root_2N(q, ctx.N) for q in qs],
                              device, dA, dB,
-                             word_bits=ctx.compute_radix_bits)
+                             word_bits=ctx.compute_radix_bits,
+                             mont_rec=mont_rec)
             if cache:
                 d = {f: t.to("cpu") for f, t in plan.tensors().items()}
                 d.update(R=plan.R, S=plan.S, dA=plan.dA, dB=plan.dB,
@@ -263,3 +288,19 @@ def group_plans(ctx, device, cache=True):
                 tmp.replace(path)
         out.append((lo, hi, plan))
     return tuple(out)
+
+
+def group_plans(ctx, device, cache=True):
+    """One plan per width group of the context's primes, Shoup
+    recombination: ((start, stop, MxuPlan), ...) over global channel
+    indices. With ``cache``, each plan is read from the context's cache
+    folder when there, and written there after a build."""
+    return _plans(ctx, device, width_groups(ctx.q), False, cache)
+
+
+def master_plans(ctx, device, cache=True):
+    """The one plan over every prime at the word size's digits, Montgomery
+    recombination, as ((0, C, MxuPlan),)."""
+    return _plans(ctx, device,
+                  [(0, len(ctx.q), digit_params(ctx.buffer_bit_length))],
+                  True, cache)

@@ -6,10 +6,12 @@ is a contiguous channel slice of them (views, no copies), built lazily per
 the hybrid key switch.
 
 A context serves one NTT domain throughout: the butterfly kernels'
-bit-reversed domain (a pack's ``plan``), or, with ``use_mxu``, the
+bit-reversed domain (a pack's ``plan``, with Shoup-form twiddles or, with
+``shoup_twiddles`` off, Montgomery-form ones), or, with ``use_mxu``, the
 tensor-core kernels' natural-order domain (a pack's ``mxu``: the width
 groups that meet its channel range, each with the group tables cut to its
-channels).
+channels; with ``mxu_pallas`` off the one plan over every channel with the
+Montgomery recombination instead, ``mxu_ntt.master_plans``).
 
 Channel layout: the global prime order is q = [scales..., base,
 specials...]. At level l the alive channels are the contiguous suffix
@@ -39,8 +41,8 @@ from .rns_partition import RnsPartition
 class LevelPack(NamedTuple):
     """Per-channel constants of one channel layout, each an int64 [C]
     tensor. ql/qh/kl/kh are the 31-bit half limbs of q and
-    k = -q^-1 mod R; Rs = R^2 mod q and Rs_scale = R^2 * 2^scale_bits
-    mod q."""
+    k = -q^-1 mod R; Rs = R^2 mod q, Rs_scale = R^2 * 2^scale_bits
+    mod q and Rm = R mod q (the Montgomery identity)."""
     q: torch.Tensor
     q2: torch.Tensor
     ql: torch.Tensor
@@ -49,6 +51,7 @@ class LevelPack(NamedTuple):
     kh: torch.Tensor
     Rs: torch.Tensor
     Rs_scale: torch.Tensor
+    Rm: torch.Tensor
     plan: Optional[NttPlan] = None   # butterfly kernel tables
     mxu: Optional[tuple] = None      # MxuGroups of the tensor-core kernels
     coef: Optional[object] = None    # CoefShardPlan on a coef mesh
@@ -62,9 +65,10 @@ class PartPlan(NamedTuple):
     """Tables of one gadget part of the hybrid key switch.
 
     Y_scalar[i] applies on channel prime_idx[i+1]; L_scalar[i] on channels
-    prime_idx[i+2:] (both Montgomery form). L_enter_sh holds, per
-    divided-difference term, (w, wp, cadj) over the full level-0
-    with-special layout: w = L_i mod q (plain), wp = floor(w * 2^64 / q),
+    prime_idx[i+2:] (both Montgomery form). Per divided-difference term,
+    over the full level-0 with-special layout: L_enter, L_i R^2 mod q (the
+    Montgomery extension's scalars), and L_enter_sh, (w, wp, cadj) of the
+    Shoup extension: w = L_i mod q (plain), wp = floor(w * 2^64 / q),
     cadj = 2q - (2^63 * w mod q), the correction for operands offset by
     2^63.
     """
@@ -75,6 +79,7 @@ class PartPlan(NamedTuple):
     pack: LevelPack
     Y_scalar: Optional[torch.Tensor]
     L_scalar: tuple
+    L_enter: tuple
     L_enter_sh: tuple
 
 
@@ -84,7 +89,8 @@ class NttContext:
     its columns; the ranks of one process share the tensor-core tables
     (``Mesh.shared``)."""
 
-    def __init__(self, ctx, device, use_mxu=False, mesh=None):
+    def __init__(self, ctx, device, use_mxu=False, mesh=None,
+                 shoup_twiddles=True, mxu_pallas=True):
         self.coef_sharded = mesh is not None and mesh.axis_size("coef") > 1
         if use_mxu and self.coef_sharded:
             raise ValueError(
@@ -94,6 +100,7 @@ class NttContext:
         self.ctx = ctx
         self.device = torch.device(device)
         self.use_mxu = use_mxu
+        self.shoup_twiddles = shoup_twiddles
         self.mesh = mesh
         # (this rank's index, the size) of the rns axis.
         self.shard = None if mesh is None else (mesh.axis_index("rns"),
@@ -107,13 +114,17 @@ class NttContext:
                               self.num_special_primes, 1)
         self._build_master_tables()
         # Width-group plans ((start, stop, MxuPlan), ...) over global
-        # channels, in the tensor-core domain only.
+        # channels, in the tensor-core domain only (the one master plan
+        # without mxu_pallas).
         self.mxu_groups = None
         if use_mxu:
+            plans = mxu_ntt.group_plans if mxu_pallas else mxu_ntt.master_plans
+
             def build():
-                return mxu_ntt.group_plans(ctx, self.device)
+                return plans(ctx, self.device)
             self.mxu_groups = (build() if mesh is None else mesh.shared(
-                ("mxu_groups", id(ctx), str(self.device)), build))
+                ("mxu_groups", mxu_pallas, id(ctx), str(self.device)),
+                build))
         self._level_packs = {}
         self._part_plans = {}
 
@@ -134,8 +145,10 @@ class NttContext:
             Rs=self._tensor(ctx.R_square),
             Rs_scale=self._tensor([(Rs * scale) % q
                                    for Rs, q in zip(ctx.R_square, ctx.q)]),
+            Rm=self._tensor([ctx.R % q for q in ctx.q]),
             plan=None if self.use_mxu else make_plan(
-                ctx.logN, ctx.q, ctx.k, ctx.psi, ctx.psi_inv, self.device),
+                ctx.logN, ctx.q, ctx.k, ctx.psi, ctx.psi_inv, self.device,
+                mont=not self.shoup_twiddles),
         )
 
     # -- channel ranges ----------------------------------------------------------
@@ -263,7 +276,7 @@ class NttContext:
             L = [m[0]]
             for i in range(1, alpha - 1):
                 L.append(L[-1] * m[i])
-            Y_scalar, L_scalar, L_enter_sh = None, (), ()
+            Y_scalar, L_scalar, L_enter, L_enter_sh = None, (), (), ()
             if alpha > 1:
                 Y_scalar = self._tensor(
                     [(pow(L[i], -1, m[i + 1]) * R) % m[i + 1]
@@ -272,6 +285,10 @@ class NttContext:
                     self._tensor([(L[i] * R) % m[jj]
                                   for jj in range(i + 2, alpha)])
                     for i in range(alpha - 2))
+                L_enter = tuple(
+                    self._tensor([L[i] * Rs % q
+                                  for q, Rs in zip(ctx.q, ctx.R_square)])
+                    for i in range(alpha - 1))
                 le_sh = []
                 for i in range(alpha - 1):
                     ws = [L[i] % q for q in ctx.q]
@@ -291,6 +308,7 @@ class NttContext:
                 pack=self.make_pack(lo, hi, with_plan=False),
                 Y_scalar=Y_scalar,
                 L_scalar=L_scalar,
+                L_enter=L_enter,
                 L_enter_sh=L_enter_sh,
             ))
             local += alpha

@@ -4,9 +4,15 @@ Pointwise ops take the per-channel constants of a ``LevelPack`` and
 broadcast them over the channel axis (-2). The transforms dispatch to the
 kernel wrappers of ``cuda_ntt`` (butterfly) or ``cuda_mxu`` (tensor-core):
 the CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. The
-butterfly kernels use Shoup-form (plain) twiddles, so they return the same
-values mod q as the Montgomery-twiddle chains, with other [0, 2q)
-representatives.
+butterfly kernels take the twiddle form of the pack's plan: Shoup-form
+(plain) twiddles, which return the same values mod q as the reference's
+Montgomery chain with other [0, 2q) representatives, or Montgomery-form
+twiddles, the reference's chain word for word. The tensor-core kernels
+take their plan's recombination: with the Shoup one (the width-group plans
+of the fused kernels) the Montgomery entry and exit fold into their
+tables; with the Montgomery one (the master plan, the JAX package's XLA
+composition) they are pointwise ops around the plain transforms, as
+there.
 
 Every compare keeps the signedness the reference uses: ``reduce_2q``,
 ``make_signed``, ``canon_2q`` and the conditional subtracts compare signed.
@@ -20,6 +26,7 @@ from . import cuda_mxu, cuda_ntt, u64
 __all__ = [
     "mont_mult", "mont_enter", "mont_enter_scale", "mont_enter_scalar",
     "mont_redc", "mont_add", "mont_sub", "neg", "reduce_2q", "canon_2q",
+    "canon",
     "make_signed", "make_unsigned", "tile_unsigned", "apply_signed_perm",
     "fit_channels", "ntt", "intt", "enter_ntt", "intt_exit",
     "intt_exit_reduce", "intt_reduce", "intt_no_norm",
@@ -88,6 +95,13 @@ def canon_2q(a, pack):
     return torch.where(a < 0, a + _col(pack.q2), a)
 
 
+def canon(a, pack):
+    """Signed words (wrapped negatives allowed) -> [0, 2q): a signed
+    Montgomery product by R mod q, then ``canon_2q`` (the Montgomery basis
+    extension's words before the switch's forward transform)."""
+    return canon_2q(mont_enter_scalar(a, pack.Rm, pack), pack)
+
+
 def make_signed(a, pack):
     """[0, q) -> centred representative in (-q/2, q/2]."""
     q = _col(pack.q)
@@ -139,15 +153,24 @@ def _plan(pack):
     return pack.plan
 
 
-def ntt(a, pack):
+def _mont_rec(pack):
+    """Whether the pack's tensor-core plan recombines in Montgomery form
+    (the master plan): its entry and exit are then pointwise ops."""
+    return pack.mxu[0].plan.mont_rec
+
+
+def ntt(a, pack, pre_canon=False):
     """Forward negacyclic NTT (butterfly: natural-order input, bit-reversed
     output; tensor-core: natural order), preserving the Montgomery
-    domain."""
+    domain. ``pre_canon``: the words are signed, through ``canon`` first
+    (in the butterfly kernel's pre-stage on a whole-length plan)."""
+    if pre_canon and (pack.coef is not None or pack.mxu is not None):
+        a = canon(a, pack)
     if pack.coef is not None:
         return coef_shard.ntt_coef_sharded(a, pack.coef)
     if pack.mxu is not None:
         return cuda_mxu.dispatch(a, pack.mxu)
-    return cuda_ntt.ntt_fwd(a, _plan(pack))
+    return cuda_ntt.ntt_fwd(a, _plan(pack), pre_canon=pre_canon)
 
 
 def enter_ntt(a, pack):
@@ -155,6 +178,8 @@ def enter_ntt(a, pack):
     if pack.coef is not None:
         return coef_shard.ntt_coef_sharded(a, pack.coef, pre_enter=True)
     if pack.mxu is not None:
+        if _mont_rec(pack):
+            return cuda_mxu.dispatch(mont_enter(a, pack), pack.mxu)
         return cuda_mxu.dispatch(a, pack.mxu, enter=True)
     return cuda_ntt.ntt_fwd(a, _plan(pack), pre_enter=True)
 
@@ -168,8 +193,13 @@ def _inverse(a, pack, post_exit=False, post_reduce=False, no_norm=False):
     if pack.mxu is not None:
         if no_norm:
             raise ValueError("intt_no_norm runs in the butterfly domain")
-        return cuda_mxu.dispatch(a, pack.mxu, inverse=True, exitx=post_exit,
-                                 post_reduce=post_reduce)
+        if not _mont_rec(pack):
+            return cuda_mxu.dispatch(a, pack.mxu, inverse=True,
+                                     exitx=post_exit, post_reduce=post_reduce)
+        r = cuda_mxu.dispatch(a, pack.mxu, inverse=True)
+        if post_exit:
+            r = mont_redc(r, pack)
+        return reduce_2q(r, pack) if post_reduce else r
     return cuda_ntt.ntt_inv(a, _plan(pack), post_exit=post_exit,
                             post_reduce=post_reduce, no_norm=no_norm)
 

@@ -20,9 +20,14 @@ In the butterfly network (twiddle of stage s and block b at bank entry
    Montgomery exit) after its cross-shard stages, then reduces if asked;
    with ``no_norm`` it stops after them (lazy [0, 2q) words).
 
+The plan takes the twiddle form of the context's master plan: Shoup-form
+twiddles, or Montgomery-form ones (``use_shoup_twiddles`` off: the cross
+stages multiply by Montgomery products, the local kernels run their
+Montgomery mode, the entry multiplies by R^2 and the inverse normalises
+by N^-1 R, then reduces out of Montgomery form for the exit).
 A cross stage is the single-device twin's stage on the same words (the
-Shoup product, the lazy [0, 2q) conditional subtracts), so the results are
-the single-device transforms' words (``ops.ntt``, ``enter_ntt``, ``intt``,
+twiddle product, the lazy [0, 2q) conditional subtracts), so the results
+are the single-device transforms' words (``ops.ntt``, ``enter_ntt``, ``intt``,
 ``intt_exit``, ``intt_exit_reduce``, ``intt_reduce``, ``intt_no_norm``).
 Batch axes before [C, L] pass through.
 On a 2-D (``rns``, ``coef``) mesh each rank also holds only its rows of the
@@ -45,13 +50,16 @@ class CoefShardPlan:
     """One rank's tables for the coefficient-sharded transforms.
 
     local: the shard's NttPlan at logL (rearranged banks); cross_f,
-    cross_i: the cross stages' twiddles, Shoup pairs of [k, C] tensors;
+    cross_i: the cross stages' twiddles, pairs of [k, C] tensors (the
+    twiddles and their Shoup quotients, None for Montgomery twiddles);
     q, enter, ninv, ninv_exit: the channels' modulus and the global
-    constants of the entry and of the normalisation, as in an NttPlan.
+    constants of the entry and of the normalisation, as in an NttPlan
+    (whose form ``mont`` and Montgomery constants ``cons`` it keeps).
     """
 
     __slots__ = ("mesh", "axis", "S", "index", "logN", "channels", "local",
-                 "cross_f", "cross_i", "q", "enter", "ninv", "ninv_exit")
+                 "cross_f", "cross_i", "q", "enter", "ninv", "ninv_exit",
+                 "mont", "cons")
 
     def __init__(self, mesh, axis, logN, channels, local, cross_f, cross_i,
                  master):
@@ -65,6 +73,8 @@ class CoefShardPlan:
         self.q = master.q
         self.enter, self.ninv = master.enter, master.ninv
         self.ninv_exit = master.ninv_exit
+        self.mont = master.mont
+        self.cons = [t[:, None] for t in cuda_ntt._montmul_consts(master)]
 
 
 def _rearranged_index(logN, S, i):
@@ -118,15 +128,22 @@ def make_coef_plan(ntt_ctx, mesh, axis="coef", level=0, mult_type=-2,
     i = mesh.axis_index(axis)
     logN = ntt_ctx.logN
     loc = torch.from_numpy(_rearranged_index(logN, S, i)).to(dev)
-    local = make_plan(logL,
-                      [ntt_ctx.ctx.q[j] for j in idx],
-                      [ntt_ctx.ctx.k[j] for j in idx],
-                      m.w.index_select(1, loc), m.iw.index_select(1, loc),
-                      dev)
+    w, iw = m.w.index_select(1, loc), m.iw.index_select(1, loc)
+    if m.mont:
+        # The rearranged Montgomery banks as they are (make_plan would
+        # enter them again); the local transforms use no entry or
+        # normalisation of their own.
+        local = cuda_ntt.NttPlan(logL, m.q, m.k, w.contiguous(), None,
+                                 iw.contiguous(), None, m.enter, m.ninv,
+                                 None, m.ident, mont=True)
+    else:
+        local = make_plan(logL, [ntt_ctx.ctx.q[j] for j in idx],
+                          [ntt_ctx.ctx.k[j] for j in idx], w, iw, dev)
     cross = torch.tensor(_cross_index(S, i), device=dev, dtype=torch.int64)
 
     def scalars(w, wp):
         return (w.index_select(1, cross).T.contiguous(),
+                None if wp is None else
                 wp.index_select(1, cross).T.contiguous())
 
     return CoefShardPlan(mesh, axis, logN, idx, local, scalars(m.w, m.wp),
@@ -141,24 +158,33 @@ def _col(t):
     return t[:, None]
 
 
+def _mul(x, w, wp, plan):
+    """x times the per-channel constants w [C] in the plan's form: a Shoup
+    product with the quotients wp, or a Montgomery product."""
+    if plan.mont:
+        return u64.montmul(x, _col(w), *plan.cons)
+    return u64.shoup_mul(x, _col(w), _col(wp), _col(plan.q))
+
+
 def ntt_coef_sharded(a, plan: CoefShardPlan, pre_enter=False):
     """Forward NTT of this rank's shard a [..., C, L] (natural order in,
     bit-reversed out, as ``ops.ntt``); ``pre_enter`` first enters
     Montgomery form (``ops.enter_ntt``)."""
-    q = _col(plan.q)
-    q2 = 2 * q
+    q2 = 2 * _col(plan.q)
     x = a
     if pre_enter:
-        x = u64.shoup_mul(x, _col(plan.enter[0]), _col(plan.enter[1]), q)
+        x = _mul(x, plan.enter[0], None if plan.mont else plan.enter[1],
+                 plan)
     k = plan.S.bit_length() - 1
+    wps = plan.cross_f[1]
     for s in range(k):
         d = 1 << (k - 1 - s)
         other = comm.exchange(x, plan.index ^ d, plan.mesh, plan.axis)
-        w, wp = _col(plan.cross_f[0][s]), _col(plan.cross_f[1][s])
+        w, wp = plan.cross_f[0][s], None if wps is None else wps[s]
         if plan.index & d:           # this shard holds the odd outputs
-            x = _cond_sub(other + q2 - u64.shoup_mul(x, w, wp, q), q2)
+            x = _cond_sub(other + q2 - _mul(x, w, wp, plan), q2)
         else:
-            x = _cond_sub(x + u64.shoup_mul(other, w, wp, q), q2)
+            x = _cond_sub(x + _mul(other, w, wp, plan), q2)
     return cuda_ntt.ntt_fwd(x, plan.local)
 
 
@@ -174,16 +200,21 @@ def intt_coef_sharded(a, plan: CoefShardPlan, post_exit=False,
     q = _col(plan.q)
     q2 = 2 * q
     k = plan.S.bit_length() - 1
+    wps = plan.cross_i[1]
     for s in reversed(range(k)):
         d = 1 << (k - 1 - s)
         other = comm.exchange(x, plan.index ^ d, plan.mesh, plan.axis)
-        w, wp = _col(plan.cross_i[0][s]), _col(plan.cross_i[1][s])
+        w, wp = plan.cross_i[0][s], None if wps is None else wps[s]
         if plan.index & d:
-            x = u64.shoup_mul(_cond_sub(other + q2 - x, q2), w, wp, q)
+            x = _mul(_cond_sub(other + q2 - x, q2), w, wp, plan)
         else:
             x = _cond_sub(x + other, q2)
     if no_norm:
         return x
-    w, wp = plan.ninv_exit if post_exit else plan.ninv
-    x = u64.shoup_mul(x, _col(w), _col(wp), q)
+    if plan.mont:
+        x = _mul(x, plan.ninv[0], None, plan)
+        if post_exit:
+            x = u64.montredc(x, *plan.cons)
+    else:
+        x = _mul(x, *(plan.ninv_exit if post_exit else plan.ninv), plan)
     return _cond_sub(x, q) if post_reduce else x

@@ -110,7 +110,7 @@ def main():
     x = chip_smoke.random_words(plan.q, (4, C, N), gen, lazy=True)
     y, scratch = torch.empty_like(x), torch.empty_like(x)
     tables = (plan.m1e, plan.m1e_rs, plan.tw, plan.m2, plan.m2_rs)
-    consts = ("q", "k", "bp", "whi", "wphi", "corr")
+    consts = ("q", "k", "bp", "whi", "wphi", "corr", "c_lo", "c_hi")
     print(f"gold forward transform, B=4 enter, {C} channels at (6, 6) "
           f"digits")
     for name, path in libs.items():
@@ -123,7 +123,7 @@ def main():
                     y.data_ptr(), y.stride(0), y.stride(1),
                     scratch.data_ptr(), 4, C, 16,
                     *(t.data_ptr() for t in tables),
-                    *(getattr(plan, f).data_ptr() for f in consts), 0,
+                    *(getattr(plan, f).data_ptr() for f in consts), 0, 0,
                     torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"{name}: launch error {rc}")
