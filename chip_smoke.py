@@ -29,8 +29,10 @@
    ``mxu_ntt_inv``), the folded switch (``mxu_switch``, both modes), the
    Montgomery-key switch (``mxu_switch_inv_mont``) and the switch core
    from extension words (``mxu_ksk_accum``, ``mxu_ksk_accum_inv``); at gold
-   (logN 16) the butterfly kernels #1-#3, the tensor-core transforms and
-   the Shoup-key switch without the fold (``mxu_switch_inv``). At gold it
+   (logN 16) the butterfly kernels #1-#3, the tensor-core transforms, the
+   Shoup-key switch without the fold (``mxu_switch_inv``) and the
+   standalone mod-down after it (``mod_down``, a batch of 4 and one
+   ciphertext, beside its twin, the chain of PyTorch ops). At gold it
    also splits ``mxu_switch_inv`` and ``mxu_ntt_fwd`` by launch (profiler
    kernel events) and times ``torch._int_mm`` of one (6, 6) channel's
    forward stage-1 product of the switch as a yardstick of the int8
@@ -91,7 +93,9 @@
    timed a line each; at silver ``galois_phase`` in both domains (the
    Galois key, rotate_galois, sum, mean, cov, var, pow, sqrt; decoded
    error < 1e-3, sqrt < 0.05) and ``rotate_check`` of the unsplit and
-   Montgomery-key routes against the others' words. Then
+   Montgomery-key routes against the others' words; at gold
+   ``mod_down_path``: the tensor-core mult and a rotation each launch the
+   mod-down kernel once, and its twin never runs. Then
    ``batched_phase``: ``mult_batched`` of Bct = 1, 2, 4, 8 pairs at silver
    (butterfly, a loop; tensor-core; tensor-core with the Montgomery-form
    key) and Bct = 1, 2, 4 at gold tensor-core, each with the counters
@@ -127,7 +131,8 @@
    single-device tensor-core engine, each rank's mult launching #5 and #6
    once a width group of its rows and the unfolded switch (#10 or #9)
    once a width group of its with-special rows, never #11, then #10 and
-   #9 at rank 0's rows against their twins; ``multiprocess_phase``, two
+   #9 at rank 0's rows against their twins, and the mod-down on rank 0's
+   gathered rows (``mesh_mod_down_case``); ``multiprocess_phase``, two
    processes of a gloo ``torch.distributed`` job on ``cuda:0``
    (``tests/torch_multihost_worker.py``: the sharded engine across them,
    and threshold decryption with one party a process), their wall. Then
@@ -144,7 +149,8 @@
    kernel of the preset's multiply against its twin at its level-1
    shapes (the butterfly #1-#3, #4 at bronze, the tensor-core transforms
    #5 and #6, the Shoup key's switch: #11 in both modes with n_sp = 1 at
-   bronze, #10 at platinum, and #9 with the Montgomery-form key); at
+   bronze, #10 at platinum, and #9 with the Montgomery-form key; the
+   mod-down with n_sp = 1 at bronze, B = 4, and 6 at platinum, B = 2); at
    platinum the split of #10 and #5 by launch (in a fresh process); the
    paths butterfly, tensor-core and, at platinum, tensor-core with the
    Montgomery-form key, as in 6; at bronze also the unsplit butterfly path
@@ -159,6 +165,9 @@
 
 ``--split-only PRESET`` runs only the split by launch at the preset; the
 script runs platinum's so, in a process of its own.
+
+``--mod-down-only`` runs only the mod-down kernel's cases (gold, a mesh
+rank's gathered rows, bronze, platinum) and ``mod_down_path`` at gold.
 
 ``--compile-yardstick`` also times ``torch.compile`` of the
 ``ksk_mulacc`` twin as that kernel's ``library_ms`` (the compile takes
@@ -348,6 +357,18 @@ def mxu_switch_work(groups, P, A, n_sp, S, R, mont=False, from_ext=False,
                                                    + SHOUP_MULS)))
         macs += B * C * d * d * N * (S + R) * (P + inv)
     return by, muls, macs
+
+
+def mod_down_work(L, C_sp, C_ord, n_sp, N):
+    """(bytes, int32 multiplies) of one standalone mod-down of L rows of
+    C_sp channels: the words read once and the C_ord ordinary ones written
+    once, the tables; per column n_sp removal steps of each ordinary word
+    (a Shoup product each) and kk of the kk-th dropped row (a Barrett
+    reduction and a Shoup product each)."""
+    by = 8 * (L * (C_sp + C_ord) * N + (2 * n_sp + 2) * C_sp)
+    muls = L * N * (C_ord * n_sp * SHOUP_MULS + n_sp * (n_sp - 1) // 2
+                    * (BARRETT_MULS + SHOUP_MULS))
+    return by, muls
 
 
 def random_words(q, shape, gen, lazy=False):
@@ -966,16 +987,21 @@ def switch_kernels(eng):
     ``butterfly_switch_route`` with the inverse transform (and, but on the
     fused route, the forward transform of the parts), in the engine's
     twiddle form and, with the Montgomery extension, with the canon
-    pre-stage in #1 (split, composed) or #4 (fused)."""
+    pre-stage in #1 (split, composed) or #4 (fused); on every route but
+    the fold (``mxu_switch``) with the Shoup mod-down, its kernel
+    (``mod_down``)."""
     from liberate_tpu_torch.fhe.engine import butterfly_switch_route, \
         switch_route
     from liberate_tpu_torch.ntt.cuda_ntt import launch_label
 
+    md = ["mod_down"] if eng.use_shoup_moddown else []
     if eng.use_mxu_ntt:
         route = switch_route(eng.ctx.logN, eng.use_shoup_ksk,
                              shoup_moddown=eng.use_shoup_moddown,
                              fused=eng._mxu_fused())
-        return transforms(eng) if route == "composed" else [route]
+        if route == "mxu_switch":
+            return [route]
+        return (transforms(eng) if route == "composed" else [route]) + md
     mont, canon = not eng.use_shoup_twiddles, not eng.use_shoup_extend
     fwd, inv = transforms(eng)
     return {"split": [launch_label("ntt_fwd", mont, canon), "ksk_mulacc",
@@ -984,7 +1010,7 @@ def switch_kernels(eng):
             "composed": list(dict.fromkeys(
                 [fwd, launch_label("ntt_fwd", mont, canon), inv]))}[
         butterfly_switch_route(eng.ctx.logN, eng.use_split_switch,
-                               fused_switch=eng.use_fused_switch)]
+                               fused_switch=eng.use_fused_switch)] + md
 
 
 def transforms(eng):
@@ -2040,8 +2066,8 @@ def mxu_mesh_phase(eng_mxu, eng_mont, rows, gen):
     once for each width group of its rows of the ordinary layout and the
     unfolded switch of its key form (#10 with the Shoup-form key, #9 with
     the Montgomery-form one) once for each width group of its
-    with-special rows; #11 never. Then #10 and #9 at rank 0's shape
-    against their twins."""
+    with-special rows, and the mod-down of its gathered rows once; #11
+    never. Then #10 and #9 at rank 0's shape against their twins."""
     import torch
 
     from liberate_tpu_torch.fhe.engine import switch_route
@@ -2055,6 +2081,7 @@ def mxu_mesh_phase(eng_mxu, eng_mont, rows, gen):
         out["mxu_ntt_fwd"] = out["mxu_ntt_inv"] = n
         out[switch_route(e.ctx.logN, e.use_shoup_ksk, True)] = len(
             e.pack(level, -2).mxu)
+        out["mod_down"] = 1
         return out
 
     def keep(e, words):
@@ -2206,8 +2233,115 @@ def switch_core_path(eng, evk, gen, label, rows):
     if not same or not torch.equal(d76, d8):
         raise AssertionError(f"{label}: the switch core disagrees")
     check_launches(label, path, ["mxu_ksk_accum", "mxu_ksk_accum_inv",
-                                 "mxu_ntt_inv", "mxu_switch_inv_mont"], rows)
+                                 "mxu_ntt_inv", "mxu_switch_inv_mont",
+                                 "mod_down"], rows)
     time_and_profile(label, "switch", switch)
+
+
+def mod_down_case(label, q, piw, bp, n_sp, C_ord, lead, N, gen, rows):
+    """The standalone mod-down (``cuda_mxu.mod_down``) against its twin on
+    random plain words [*lead, C_sp, N] of the moduli q, timed beside its
+    bound."""
+    import math
+
+    from liberate_tpu_torch.ntt import cuda_mxu
+
+    C_sp, L = q.shape[0], math.prod(lead)
+    d = random_words(q, (*lead, C_sp, N), gen)
+    check_case(
+        "mod_down", f"{label} {list(d.shape)} -> C_ord={C_ord} n_sp={n_sp}",
+        lambda: cuda_mxu.mod_down(d, q, piw, bp, n_sp, C_ord),
+        lambda: cuda_mxu.mod_down_plain(d, q, piw, bp, n_sp, C_ord),
+        bound(*mod_down_work(L, C_sp, C_ord, n_sp, N)), rows,
+        "liberate_tpu_torch/csrc/mod_down.cu",
+        "none: the JAX mod-down is XLA pointwise "
+        "(liberate_tpu/fhe/engine.py _mod_down_shoup)")
+
+
+def mod_down_phase(preset, eng, gen, rows, leads):
+    """The standalone mod-down at the preset's level-1 shapes, one case of
+    each leading shape in ``leads`` ((2,): one ciphertext's switch; (2, B):
+    a batch of B)."""
+    level = 1
+    for lead in leads:
+        mod_down_case(f"{preset} level {level}", eng.pack(level, -2).q,
+                      eng.PiWs[level], eng.bp_sp[level][0], eng.num_special,
+                      eng.pack(level, -1).q.shape[0], lead, eng.ctx.N, gen,
+                      rows)
+
+
+def mod_down_path(eng, label):
+    """The tensor-core engine's mult and rotate_single with the counters
+    zeroed before each: each launches the mod-down kernel once (after the
+    unfolded switch), the decoded errors < 1e-4, and its twin, the chain
+    of PyTorch ops, never runs."""
+    import numpy as np
+    import torch
+
+    from liberate_tpu_torch.fhe.engine import switch_route
+    from liberate_tpu_torch.ntt import cuda_mxu
+
+    route = switch_route(eng.ctx.logN, eng.use_shoup_ksk)
+    sk = eng.create_secret_key()
+    pk = eng.create_public_key(sk)
+    evk = eng.create_evk(sk)
+    rotk = eng.create_rotation_key(sk, 1)
+    m1, m2 = messages(eng)
+    ct1, ct2 = eng.encorypt(m1, pk), eng.encorypt(m2, pk)
+    twin_calls = []
+    twin = cuda_mxu.mod_down_plain
+
+    def spy(*args):
+        twin_calls.append(args[0].shape)
+        return twin(*args)
+
+    cuda_mxu.mod_down_plain = spy
+    launched = {}
+    try:
+        for op in ("mult", "rotate_single"):
+            reset_counters()
+            if op == "mult":
+                out = eng.mult(ct1, ct2, evk)
+            else:
+                out = eng.rotate_single(out, rotk)
+            torch.cuda.synchronize()
+            launched[op] = counters()["mod_down"]
+    finally:
+        cuda_mxu.mod_down_plain = twin
+    err = abs(eng.absmax_error(eng.decrode(out, sk), np.roll(m1 * m2, 1)))
+    print(f"{label} mod-down path: switch {route}, then the mod-down "
+          f"kernel: launches {launched}; the twin ran "
+          f"{len(twin_calls)} times; rotated product |err| {err:.3e}")
+    if launched != {"mult": 1, "rotate_single": 1} or twin_calls:
+        raise AssertionError(f"{label}: the mod-down launched {launched}, "
+                             f"its twin ran on {twin_calls}")
+    if not err < 1e-4:
+        raise AssertionError(f"{label}: error {err} >= 1e-4")
+
+
+def mesh_mod_down_case(gen, rows):
+    """The standalone mod-down on rank 0's gathered rows of the silver
+    engine on ``make_mesh(MESH_RANKS)`` (its ordinary rows, then every
+    special row; the tables of ``_mod_down_tables``), ranks as threads on
+    the card: a batch of 4 against its twin."""
+    import liberate_tpu_torch
+    from liberate_tpu_torch.parallel import make_mesh, run_ranks
+
+    params = {k: v for k, v in liberate_tpu_torch.params["silver"].items()
+              if k != "mesh_shape"}
+    level = 1
+
+    def body():
+        e = liberate_tpu_torch.CkksEngine(mesh=make_mesh(MESH_RANKS),
+                                          seed=SEED, **params)
+        _, pack_md, _, _, piw, bp = e._mod_down_tables(level)
+        return (pack_md.q, piw, bp, e.num_special,
+                e.pack(level, -1).q.shape[0], e.ctx.N)
+
+    q, piw, bp, n_sp, C_ord, N = run_ranks(MESH_RANKS, body,
+                                           device="cuda:0")[0]
+    mod_down_case(f"silver level {level} rank 0 of {MESH_RANKS} gathered",
+                  q, piw, bp, n_sp, C_ord, (2, 4), N, gen, rows)
 
 
 def kernel_phase(preset, eng, eng_mxu, gen, rows, compile_yardstick,
@@ -2666,17 +2800,17 @@ def examples_phase(rows):
     card as a user runs them, ``main(["silver"])``, each with the counters
     zeroed just before: every error they print < 1e-4; ``ckks_engine``
     launches #1 and #2, ``evaluators`` and ``multiparty`` #1, #2 and #3
-    (the butterfly split route), ``multichip`` (4 ranks as threads on the
-    card, an ``rns`` and a 2-D mesh) those and #2 in its no-normalise mode
-    (the coefficient-sharded inverse); none launches another kernel. Prints
-    each example's wall time and errors."""
+    (the butterfly split route) and the mod-down, ``multichip`` (4 ranks as
+    threads on the card, an ``rns`` and a 2-D mesh) those and #2 in its
+    no-normalise mode (the coefficient-sharded inverse); none launches
+    another kernel. Prints each example's wall time and errors."""
     import numpy as np
     import torch
 
     from liberate_tpu_torch.examples import (ckks_engine, evaluators,
                                              multichip, multiparty)
 
-    bfly = ("ntt_fwd", "ntt_inv", "ksk_mulacc")
+    bfly = ("ntt_fwd", "ntt_inv", "ksk_mulacc", "mod_down")
     for name, mod, own in (
             ("ckks_engine", ckks_engine, bfly[:2]),
             ("evaluators", evaluators, bfly),
@@ -2770,6 +2904,8 @@ def preset_phase(preset, dev, gen, rows, scratch, new_phases, starts):
     print(f"{preset} MXU engine (context and tables from the cache): "
           f"{time.perf_counter() - t:.2f} s")
     kernel_phase(preset, eng, eng_mxu, gen, rows, False, scratch)
+    mod_down_phase(preset, eng, gen, rows,
+                   ((2, 4),) if preset == "bronze" else ((2, 2),))
     t = time.perf_counter()
     parity_kernel_phase(preset, eng, gen, rows, scratch)
     new_phases[f"{preset} parity kernels"] = time.perf_counter() - t
@@ -2813,6 +2949,52 @@ def preset_phase(preset, dev, gen, rows, scratch, new_phases, starts):
     print(f"{preset} phases: {time.perf_counter() - t0:.1f} s")
 
 
+def card_line():
+    """The card's name and power limit (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def mod_down_only():
+    """``--mod-down-only``: the card line, the mod-down kernel's build and
+    ptxas lines, its cases against its twin at gold (a batch of 4, one
+    ciphertext), on a mesh rank's gathered rows at silver, at bronze
+    (n_sp = 1, a batch of 4) and at platinum (n_sp = 6, a batch of 2), the
+    gold tensor-core mod-down path, and the kernels' JSON line."""
+    import torch
+
+    import liberate_tpu_torch
+    from liberate_tpu_torch import _build
+
+    card = card_line()
+    print(card)
+    t = time.perf_counter()
+    lib = _build.build(["mod_down"])["mod_down"]
+    print(f"build: {time.perf_counter() - t:.2f} s ({lib.name})")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "warning" in line:
+            print(f"  ptxas[mod_down] {line.strip()}")
+    rows = {}
+    gen = torch.Generator(device="cuda:0").manual_seed(SEED)
+    eng = liberate_tpu_torch.CkksEngine(**liberate_tpu_torch.params["gold"],
+                                        seed=SEED, use_mxu_ntt=True)
+    mod_down_phase("gold", eng, gen, rows, ((2, 4), (2,)))
+    mod_down_path(eng, "gold MXU")
+    del eng
+    torch.cuda.empty_cache()
+    mesh_mod_down_case(gen, rows)
+    for preset, lead in (("bronze", (2, 4)), ("platinum", (2, 2))):
+        eng = liberate_tpu_torch.CkksEngine(
+            **liberate_tpu_torch.params[preset], seed=SEED)
+        mod_down_phase(preset, eng, gen, rows, (lead,))
+        del eng
+    print(card)
+    print(json.dumps({"kernels": list(rows.values())}))
+    return 0
+
+
 def main():
     start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2823,6 +3005,9 @@ def main():
                     help="only split the preset's tensor-core switch and "
                          "transform by launch (the script runs the "
                          "platinum split so, in a process of its own)")
+    ap.add_argument("--mod-down-only", action="store_true",
+                    help="only the mod-down kernel's cases and its gold "
+                         "tensor-core path")
     opts = ap.parse_args()
     if opts.compile_yardstick:
         # torch.compile compiles in this process instead of a pool of
@@ -2853,11 +3038,10 @@ def main():
         split_phase(eng_mxu, torch.Generator(device="cuda:0").manual_seed(
             SEED))
         return 0
+    if opts.mod_down_only:
+        return mod_down_only()
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     cpu = host_cpu()
     print(f"host CPU: {cpu}")
@@ -2954,6 +3138,7 @@ def main():
                       bcts=(4, 8) if preset == "silver" else (4,))
         new_phases[f"{preset} segments"] = time.perf_counter() - t
         if preset == "gold":
+            mod_down_phase(preset, eng_mxu, gen, rows, ((2, 4), (2,)))
             split_phase(eng_mxu, gen)
             int8_yardstick(eng_mxu, gen)
     prime_plans_phase(dev, gen, rows, scratch)
@@ -3056,6 +3241,7 @@ def main():
     for e, label in ((eng, "gold butterfly"), (eng_mxu, "gold MXU")):
         run = drive_path(e, label, rows)
         ops_phase(e, label, run, rows, timed=True)
+    mod_down_path(eng_mxu, "gold MXU")
     t = time.perf_counter()
     batched_phase(eng_mxu, "gold MXU", run, rows, (1, 2, 4),
                   timed=(1, 2, 4))
@@ -3079,6 +3265,7 @@ def main():
                                              use_mxu_ntt=True,
                                              use_shoup_ksk=False)
     mxu_mesh_phase(eng_mxu, eng_mont, rows, gen)
+    mesh_mod_down_case(gen, rows)
     new_phases[MXU_MESH] = time.perf_counter() - t
     del eng, eng_mxu, eng_mont
     torch.cuda.empty_cache()

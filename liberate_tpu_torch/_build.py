@@ -25,7 +25,7 @@ PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 SOURCES = {"ntt": "ntt.cu", "ksk_mulacc": "ksk_mulacc.cu",
            "ntt_mulacc": "ntt_mulacc.cu", "mxu_ntt": "mxu_ntt.cu",
-           "mxu_switch": "mxu_switch.cu"}
+           "mxu_switch": "mxu_switch.cu", "mod_down": "mod_down.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Host libraries: name -> source, compiled by CXX.

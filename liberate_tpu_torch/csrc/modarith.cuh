@@ -15,6 +15,16 @@ __device__ __forceinline__ u64 shoup_mul(u64 x, u64 w, u64 wp, u64 q) {
   return x * w - hi * q;
 }
 
+// One step of the special-prime mod-down: (v + 2q - (src mod q)) * P_j^-1
+// mod q as a [0, 2q) representative, the Shoup pair (w, wp) being P_j^-1
+// and its quotient, bp = floor(2^64 / q) the Barrett reciprocal that
+// reduces the dropped row's word src to [0, 2q).
+__device__ __forceinline__ u64 md_iter(u64 v, u64 src, u64 w, u64 wp, u64 q,
+                                       u64 bp) {
+  const u64 tile = src - __umul64hi(src, bp) * q;
+  return shoup_mul(v + 2 * q - tile, w, wp, q);
+}
+
 // v - m when v >= m. The compare is SIGNED, as in the reference's
 // conditional subtract and final reduce; all operands here are < 2^63, so
 // it agrees with the unsigned compare.

@@ -108,18 +108,12 @@ __global__ void extend(const u64* st, int P, int A, int N, const u64* terms,
   ext[((long long)bp * C + c) * N + n] = acc;
 }
 
-// One removal step: (v + 2q - (src mod q)) * P_j^-1, a Shoup product.
-__device__ __forceinline__ u64 md_iter(u64 v, u64 src, u64 w, u64 wp, u64 q,
-                                       u64 bp) {
-  const u64 tile = mxu::barrett_2q(src, bp, q);
-  return shoup_mul(v + 2 * q - tile, w, wp, q);
-}
-
-// r: the group's reduced rows [2][B][C] with strides (B * r_sb, r_sb, N);
-// special: the group's last n_sp channels are the dropped ones (last
-// first); srcs: [B][2 * n_sp][N] rows, written in the special mode and read
-// otherwise. piw: [n_sp, 2, ldc] (P_j^-1 and its Shoup quotient per
-// channel).
+// The removal steps are modarith.cuh's md_iter, as in the standalone
+// mod-down (csrc/mod_down.cu). r: the group's reduced rows [2][B][C] with
+// strides (B * r_sb, r_sb, N); special: the group's last n_sp channels
+// are the dropped ones (last first); srcs: [B][2 * n_sp][N] rows, written
+// in the special mode and read otherwise. piw: [n_sp, 2, ldc] (P_j^-1 and
+// its Shoup quotient per channel).
 __global__ void fold(u64* r, long long r_sb, int B, int C, int N, int n_sp,
                      int special, const u64* srcs_in, u64* srcs_out,
                      const u64* piw, int ldc, const u64* qv,

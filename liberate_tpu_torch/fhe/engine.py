@@ -13,8 +13,9 @@ The multiply follows the reference's fused path with the butterfly kernels
 and Shoup-form chains: four rescales, the products in the NTT domain
 (one B=4 forward transform), the B=3 inverse transform, and the hybrid key
 switch (basis extension, forward transform, key multiply-accumulate over
-gadget parts, inverse transform, special-prime mod-down). Rescale,
-extension and mod-down are plain torch ops; the transforms and the key
+gadget parts, inverse transform, special-prime mod-down). Rescale and
+extension are plain torch ops, the mod-down one kernel
+(``cuda_mxu.mod_down``); the transforms and the key
 multiply-accumulate are the CUDA kernels of ``ntt.cuda_ntt``: by default
 the forward transform then ``ksk_mulacc``, with ``use_split_switch=False``
 both in one ``ntt_mulacc`` kernel (``butterfly_switch_route``).
@@ -33,7 +34,8 @@ for its accelerator) every transform runs in the tensor-core kernels of
 kernel per width group: extension from the raw divided-difference state,
 transform, key products summed over the parts, inverse, and, up to
 ``FOLD_MAX_LOGN`` with a Shoup-form key, the special-prime mod-down; else
-the plain-domain mod-down follows as torch ops (``switch_route``).
+the plain-domain mod-down follows in a kernel of its own
+(``switch_route``).
 """
 
 import datetime
@@ -201,25 +203,11 @@ def _mod_down_shoup(d, pack_sp, pack_ord, PiWs, bp, n_sp):
     """Special-prime removal in the plain domain. d: [..., C_sp, N] plain
     [0, q); returns [..., C_ord, N] in [0, q). Each special prime in turn:
     subtract its (Barrett-reduced) row from every channel, multiply by
-    P_j^-1 (Shoup)."""
-    C_sp = d.shape[-2]
-    q2 = _col(pack_sp.q2)
-    q = _col(pack_sp.q)
-    v = d
-    for P_ind in range(n_sp):
-        cur = C_sp - P_ind
-        src = v[..., cur - 1:cur, :]
-        if P_ind:
-            # The dropped row is subtracted as an INTEGER: make it the
-            # canonical [0, q) representative of its own modulus.
-            qr = pack_sp.q[cur - 1]
-            src = torch.where(u64.lt_unsigned(src, qr), src, src - qr)
-        tile = u64.barrett_2q(src.expand_as(v), _col(bp), q)
-        w, wp = PiWs[P_ind]
-        v = u64.shoup_mul(v + q2 - tile, _col(w), _col(wp), q)
-    vo = v[..., :pack_ord.q.shape[0], :]
-    qo = _col(pack_ord.q)
-    return torch.where(vo < qo, vo, vo - qo)
+    P_j^-1 (Shoup). PiWs: [n_sp, 2, C_sp], the steps' (P_j^-1, quotient).
+    One kernel on the card, its twin (the same words) on the CPU
+    (``cuda_mxu.mod_down``)."""
+    return cuda_mxu.mod_down(d, pack_sp.q, PiWs, bp, n_sp,
+                             pack_ord.q.shape[0])
 
 
 def _cc_mult_core(x0, x1, y0, y1, pack):
@@ -705,11 +693,12 @@ class CkksEngine:
     def _create_ksk_rescales(self):
         """Mod-down tables per level, over the with-special channels. Shoup
         form: for each special prime P_j (P_j^-1 mod q_i, quotient), 1 on
-        the channels already dropped; the Barrett reciprocals
-        floor(2^64 / q_i), and the offset correction 2q - (2^63 mod q) of
-        the basis extension's first term. Montgomery form: PiRs, P_j^-1 R
-        mod q_i (R, the identity, on the channels already dropped), and
-        enter_ord, R^2 on the ordinary channels and R on the special ones."""
+        the channels already dropped, stacked [n_sp, 2, C_sp]; the Barrett
+        reciprocals floor(2^64 / q_i), and the offset correction
+        2q - (2^63 mod q) of the basis extension's first term. Montgomery
+        form: PiRs, P_j^-1 R mod q_i (R, the identity, on the channels
+        already dropped), and enter_ord, R^2 on the ordinary channels and R
+        on the special ones."""
         ctx = self.ctx
         R = ctx.R
         P = ctx.q[-self.num_special:][::-1]
@@ -729,7 +718,8 @@ class CkksEngine:
                 per_level.append(self._shoup_pair(ws, q_lvl))
                 per_level_r.append(self._tensor(
                     [w * R % mi for w, mi in zip(ws, q_lvl)]))
-            self.PiWs.append(tuple(per_level))
+            self.PiWs.append(torch.stack([torch.stack(p)
+                                          for p in per_level]))
             self.PiRs.append(tuple(per_level_r))
             self.bp_sp.append((
                 self._tensor([(1 << 64) // q for q in q_lvl]),
@@ -1274,7 +1264,7 @@ class CkksEngine:
         """The gathered rows the mod-down reads on a mesh (this rank's
         ordinary rows, then the special rows), their pack, the Montgomery
         chain's P_j^-1 R steps and entry scalars, and the Shoup chain's
-        P_j^-1 steps and Barrett reciprocals."""
+        P_j^-1 steps [n_sp, 2, rows] and Barrett reciprocals."""
         def build():
             C_ord = self.ntt.num_channels(level, -1)
             C_sp = self.ntt.num_channels(level, -2)
@@ -1284,7 +1274,7 @@ class CkksEngine:
                                                  with_plan=False),
                     tuple(t[idx] for t in self.PiRs[level]),
                     self.enter_ord[level][idx],
-                    tuple((w[idx], wp[idx]) for w, wp in self.PiWs[level]),
+                    self.PiWs[level].index_select(-1, idx),
                     self.bp_sp[level][0][idx])
 
         return self._cached(("mod_down", level), build)
@@ -1353,7 +1343,7 @@ class CkksEngine:
                 for i, sh in enumerate(p.L_enter_sh):
                     terms[pi, i] = torch.stack(
                         [t[level:level + C_sp] for t in sh])
-            piw = torch.stack([torch.stack(wp) for wp in self.PiWs[level]])
+            piw = self.PiWs[level]
             off0 = self.bp_sp[level][1]
             if self.mesh is not None:
                 rel = self._index(self._offsets(level, -2, level))

@@ -31,6 +31,14 @@ Six kernels (sources in ``liberate_tpu_torch/csrc``):
   ``fold_inverse`` also the inverse and the reduce to [0, q) (counter
   ``mxu_ksk_accum_inv``, replaces ``mxu_pallas._mulacc_inv_kernel``).
 
+Beside them, the switch's standalone special-prime mod-down:
+
+- ``mod_down``: the with-special words of the unfolded switch (every
+  route but ``mxu_switch``'s fold, on every domain and mesh) to the
+  ordinary channels, in one pass (``csrc/mod_down.cu``; replaces no
+  Pallas kernel: the JAX package's mod-down is XLA pointwise code). Its
+  twin is the chain of u64.py ops the engine ran before.
+
 ``dispatch``, ``dispatch_switch``, ``dispatch_switch_inv`` and
 ``dispatch_ksk_accum`` run a level's width groups, as
 ``mxu_pallas.dispatch``, ``dispatch_ksk_from_state`` (with and without
@@ -63,10 +71,14 @@ from .mxu_ntt import MxuPlan
 launches = {"mxu_ntt_fwd": 0, "mxu_ntt_inv": 0, "mxu_ntt_fwd_montrec": 0,
             "mxu_ntt_inv_montrec": 0, "mxu_switch": 0,
             "mxu_switch_inv": 0, "mxu_switch_inv_mont": 0,
-            "mxu_ksk_accum": 0, "mxu_ksk_accum_inv": 0}
+            "mxu_ksk_accum": 0, "mxu_ksk_accum_inv": 0, "mod_down": 0}
 
 # (dA, dB) pairs with compiled kernels (30-, 40- and 60-bit primes).
 DIGITS = (4, 6, 8)
+
+# The most special primes the mod-down kernels take (csrc/mxu_switch.cu's
+# fold, csrc/mod_down.cu).
+MAX_SPECIAL = 8
 
 # The stage kernel's constants (csrc/mxu.cuh): table columns per ring
 # stage, columns per block, X tiles in flight, threads (two consumer
@@ -399,6 +411,31 @@ def mxu_switch_plain(st, terms, off0, piw, k0, k1, plan, key_ch, part_off,
             torch.stack([o[1] for o in outs]))
 
 
+def mod_down_plain(d, q, piw, bp, n_sp, C_ord):
+    """The special-prime removal of d [..., C_sp, N] plain [0, q): each
+    special prime in turn (the last channel first) subtracts its
+    Barrett-reduced row from every channel and multiplies by P_j^-1
+    (Shoup); [..., C_ord, N] in [0, q)."""
+    C_sp = d.shape[-2]
+    q2 = 2 * q[:, None]
+    qc = q[:, None]
+    v = d
+    for P_ind in range(n_sp):
+        cur = C_sp - P_ind
+        src = v[..., cur - 1:cur, :]
+        if P_ind:
+            # The dropped row is subtracted as an INTEGER: make it the
+            # canonical [0, q) representative of its own modulus.
+            qr = q[cur - 1]
+            src = torch.where(u64.lt_unsigned(src, qr), src, src - qr)
+        tile = u64.barrett_2q(src.expand_as(v), bp[:, None], qc)
+        v = u64.shoup_mul(v + q2 - tile, piw[P_ind, 0, :, None],
+                          piw[P_ind, 1, :, None], qc)
+    vo = v[..., :C_ord, :]
+    qo = qc[:C_ord]
+    return torch.where(vo < qo, vo, vo - qo)
+
+
 # -- CUDA launches -----------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -416,6 +453,7 @@ _ARGTYPES = {
     + [_P] * 16 + [_P],
     "ltt_mxu_ksk_accum": [_I, _I, _P, _L, _L, _I, _P, _P, _L, _L, _P, _P, _P,
                           _P, _L, _I, _I] + [_P] * 16 + [_P],
+    "ltt_mod_down": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -749,6 +787,53 @@ def mxu_ksk_accum(ext, k0, k1, plan, key_ch, part_off, fold_inverse=False,
     _raise_on(rc, name)
     launches[name] += 1
     return out
+
+
+def mod_down(d, q, piw, bp, n_sp, C_ord):
+    """The key switch's special-prime mod-down: d [..., C_sp, N] plain
+    [0, q) words over the with-special channels, the n_sp special primes
+    last; q, bp [C_sp] the moduli and Barrett reciprocals floor(2^64 / q);
+    piw [n_sp, 2, C_sp] (P_j^-1 mod q_i and its Shoup quotient) per removal
+    step, the last channel's prime first. Returns [..., C_ord, N] in
+    [0, q): the first C_ord channels (C_ord + n_sp <= C_sp).
+
+    One launch of ``ltt_mod_down`` for a CUDA tensor (counter
+    ``mod_down``), the twin ``mod_down_plain`` for a CPU one. d must be
+    dense int64 words, the tables dense int64 on its device."""
+    if d.dtype != torch.int64 or d.dim() < 2:
+        raise TypeError(f"mod_down: expected int64 words [..., C_sp, N], got "
+                        f"{d.dtype} {tuple(d.shape)}")
+    if not d.is_contiguous():
+        raise ValueError("mod_down: the words must be contiguous")
+    C_sp, N = d.shape[-2:]
+    if not 1 <= n_sp <= MAX_SPECIAL:
+        raise ValueError(f"mod_down: n_sp = {n_sp}; the kernel takes 1 to "
+                         f"{MAX_SPECIAL} special primes")
+    if not 1 <= C_ord <= C_sp - n_sp:
+        raise ValueError(f"mod_down: {C_ord} ordinary channels of {C_sp} "
+                         f"with {n_sp} special")
+    for name, t, shape in (("q", q, (C_sp,)), ("bp", bp, (C_sp,)),
+                           ("piw", piw, (n_sp, 2, C_sp))):
+        if tuple(t.shape) != shape or t.dtype != torch.int64 \
+                or t.device != d.device or not t.is_contiguous():
+            raise ValueError(f"mod_down: {name} must be contiguous int64 "
+                             f"{list(shape)} on {d.device}, got "
+                             f"{t.dtype} {list(t.shape)} on {t.device}")
+    if _device_kind(d) == "cpu":
+        return mod_down_plain(d, q, piw, bp, n_sp, C_ord)
+    db = d.reshape(-1, C_sp, N)
+    L = db.shape[0]
+    if L > 65535:
+        raise ValueError(f"mod_down: {L} rows; the kernel takes 65535")
+    out = torch.empty((L, C_ord, N), dtype=torch.int64, device=d.device)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        rc = _fn("mod_down", "ltt_mod_down")(
+            db.data_ptr(), out.data_ptr(), L, C_sp, C_ord, N, n_sp,
+            piw.data_ptr(), q.data_ptr(), bp.data_ptr(), stream)
+    _raise_on(rc, "mod_down")
+    launches["mod_down"] += 1
+    return out.reshape(*d.shape[:-2], C_ord, N)
 
 
 # -- width-group dispatch ------------------------------------------------------------

@@ -13,6 +13,10 @@ and then the separate ``engine._mod_down_shoup``. Here:
   interpret mode, over both width groups, on random state rows and keys;
 - the port's ``_mod_down_shoup`` equals the JAX one (tiled form) with four
   and six special primes, gold's and platinum's counts;
+- the standalone mod-down wrapper ``cuda_mxu.mod_down`` (on the CPU its
+  twin, the u64.py chain) gives the exact mod-down in integers with one,
+  two, four and six special primes, with and without a batch axis and on
+  a mesh rank's gathered rows, and refuses what its kernel does not take;
 - a JAX engine with Montgomery-form keys switches a random polynomial
   with the port's evk; its words equal the port's switch with the
   Montgomery-form key, and with the Shoup-form key on both routes (the
@@ -50,6 +54,7 @@ from liberate_tpu.ntt.ntt_context import NttContext
 from liberate_tpu_torch import interop
 from liberate_tpu_torch.fhe import engine as port_engine
 from liberate_tpu_torch.ntt import cuda_mxu
+from liberate_tpu_torch.parallel import make_mesh, run_ranks
 
 PARAMS = dict(logN=8, scale_bits=40, num_scales=3, num_special_primes=2,
               is_secured=False)
@@ -219,6 +224,98 @@ def test_mod_down_shoup_matches_jax_special_primes(n_sp):
         C_sp, C_sp, C_ord, tiled=True)
     assert got.shape == (2, C_ord, N)
     assert np.array_equal(got.numpy(), _words(want))
+
+
+def _mod_down_exact(d, q, n_sp, C_ord):
+    """The mod-down in Python integers: each special prime P_j in turn (the
+    last channel first) leaves its row's canonical value s and every
+    channel i before it becomes (v - s) P_j^-1 mod q_i."""
+    v = d.astype(object)
+    qs = [int(x) for x in q]
+    for j in range(n_sp):
+        ch = len(qs) - 1 - j
+        src = v[..., ch, :] % qs[ch]
+        for i in range(ch):
+            v[..., i, :] = (v[..., i, :] - src) * pow(qs[ch], -1, qs[i]) \
+                % qs[i]
+    return v[..., :C_ord, :].astype(np.int64)
+
+
+def _mod_down_case(e, level, lead, rng):
+    """Random plain words of the mod-down's rows on e at ``level`` (a mesh
+    rank's gathered rows, or the with-special layout) with ``lead``
+    leading axes, the wrapper's words and the exact ones."""
+    C_ord = e.pack(level, -1).q.shape[0]
+    if e.mesh is None:
+        q, piw, bp = e.pack(level, -2).q, e.PiWs[level], e.bp_sp[level][0]
+    else:
+        _, pack, _, _, piw, bp = e._mod_down_tables(level)
+        q = pack.q
+    d = rng.integers(0, 1 << 62, size=(*lead, len(q), e.ctx.N)) \
+        % q.numpy()[:, None]
+    got = cuda_mxu.mod_down(torch.from_numpy(d), q, piw, bp, e.num_special,
+                            C_ord)
+    return got.numpy(), _mod_down_exact(d, q.numpy(), e.num_special, C_ord)
+
+
+@pytest.mark.parametrize("n_sp, layout", [
+    (1, "ct"), (1, "batched"), (2, "ct"), (2, "batched"), (4, "ct"),
+    (4, "batched"), (6, "ct"), (6, "batched"), (2, "mesh")])
+def test_mod_down_wrapper_matches_exact(n_sp, layout):
+    """``cuda_mxu.mod_down`` on CPU words (its twin, the chain the engine
+    ran before the kernel) at level 1: [2, C_sp, N] words of one
+    ciphertext, [2, B, C_sp, N] of a batch of three, and a rank's gathered
+    rows on a two-rank mesh (its ordinary rows, then every special row,
+    with the tables of ``_mod_down_tables``)."""
+    params = dict(PARAMS, num_special_primes=n_sp, seed=SEED)
+    rng = np.random.default_rng(31 + n_sp)
+    if layout != "mesh":
+        te = liberate_tpu_torch.CkksEngine(device="cpu", **params)
+        lead = (2,) if layout == "ct" else (2, 3)
+        got, want = _mod_down_case(te, 1, lead, rng)
+        assert got.shape == (*lead, te.ntt.num_channels(1, -1), te.ctx.N)
+        assert np.array_equal(got, want)
+        return
+
+    def body():
+        e = liberate_tpu_torch.CkksEngine(mesh=make_mesh(2), device="cpu",
+                                          **params)
+        return _mod_down_case(e, 1, (2,), np.random.default_rng(
+            37 + e.mesh.axis_index("rns")))
+
+    for got, want in run_ranks(2, body, device="cpu"):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("fault", [
+    "dtype", "noncontiguous", "n_sp", "q_width", "piw_width"])
+def test_mod_down_wrapper_refuses(fault):
+    """The wrapper raises on what its kernel does not take: int32 words,
+    non-contiguous words, more special primes than the kernel is built
+    for, and tables whose width is not the words' channel count."""
+    C_sp, N, n_sp = 12, 256, 2
+    rng = np.random.default_rng(41)
+    q = torch.from_numpy(rng.integers(1 << 40, 1 << 41, size=C_sp) | 1)
+    d = torch.from_numpy(rng.integers(0, 1 << 40, size=(2, C_sp, N)))
+    bp = torch.full((C_sp,), 1 << 23, dtype=torch.int64)
+    piw = torch.ones((n_sp, 2, C_sp), dtype=torch.int64)
+    C_ord = C_sp - n_sp
+    assert cuda_mxu.mod_down(d, q, piw, bp, n_sp, C_ord).shape == (
+        2, C_ord, N)
+    if fault == "dtype":
+        d = d.to(torch.int32)
+    elif fault == "noncontiguous":
+        d = d.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif fault == "n_sp":
+        n_sp = cuda_mxu.MAX_SPECIAL + 1
+        piw = torch.ones((n_sp, 2, C_sp), dtype=torch.int64)
+        C_ord = C_sp - n_sp
+    elif fault == "q_width":
+        q = q[:-1]
+    else:
+        piw = piw[..., :-1].contiguous()
+    with pytest.raises((TypeError, ValueError)):
+        cuda_mxu.mod_down(d, q, piw, bp, n_sp, C_ord)
 
 
 def test_switch_matches_jax_montgomery_key_engine(port, monkeypatch):
